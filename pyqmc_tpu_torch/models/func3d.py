@@ -1,0 +1,91 @@
+"""Jastrow radial basis functions (counterpart of pyqmc_tpu/models/func3d.py).
+
+Pure functions of distance r returning (value, f'(r)/r, f'' + 2 f'/r), so
+callers assemble cartesian gradients as (f'/r) * d_vec. All are C^1-cutoff
+at rcut and finite at r = 0 and r >= rcut. The CUDA kernels evaluate the
+same formulas (csrc/sj_device.cuh).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+
+class BasisFn(NamedTuple):
+    """Static descriptor: kind 'polypade' | 'cutoffcusp', parameter, rcut."""
+
+    kind: str
+    param: float  # beta for polypade, gamma for cutoffcusp
+    rcut: float
+
+
+def polypade_all(r, beta, rcut):
+    """PolyPade: f = (1-z)/(1+beta z), z = x^2 (6 - 8x + 3x^2), x = r/rcut."""
+    x = torch.clamp(r / rcut, 0.0, 1.0)
+    z = x * x * (6.0 - 8.0 * x + 3.0 * x * x)
+    dzdx = 12.0 * x * (1.0 - x) ** 2
+    d2zdx2 = 12.0 * (1.0 - x) * (1.0 - 3.0 * x)
+    den = 1.0 + beta * z
+    f = (1.0 - z) / den
+    dfdz = -(1.0 + beta) / (den * den)
+    d2fdz2 = 2.0 * beta * (1.0 + beta) / (den * den * den)
+    fp = dfdz * dzdx / rcut
+    fpp = (d2fdz2 * dzdx * dzdx + dfdz * d2zdx2) / (rcut * rcut)
+    inside = r < rcut
+    small = r > 1e-12
+    rsafe = torch.where(small, r, torch.full_like(r, 1e-12))
+    # f'/r is finite at r -> 0: dzdx ~ 12 x, so f'/r -> 12 dfdz / rcut^2
+    fp_over_r = torch.where(small, fp / rsafe, 12.0 * dfdz / rcut**2)
+    zero = torch.zeros_like(r)
+    return (torch.where(inside, f, zero),
+            torch.where(inside, fp_over_r, zero),
+            torch.where(inside, fpp + 2.0 * fp_over_r, zero))
+
+
+def cutoffcusp_all(r, gamma, rcut):
+    """CutoffCusp: f = rcut (p/(1 + gamma p) - c0), p = y - y^2 + y^3/3,
+    y = r/rcut; f'(0) = 1, f(rcut) = 0."""
+    y = torch.clamp(r / rcut, 0.0, 1.0)
+    p = y - y * y + y**3 / 3.0
+    pp = (1.0 - y) ** 2
+    ppp = -2.0 * (1.0 - y)
+    den = 1.0 + gamma * p
+    c0 = (1.0 / 3.0) / (1.0 + gamma / 3.0)
+    f = rcut * (p / den - c0)
+    dfdr = pp / (den * den)
+    d2fdr2 = (ppp * den - 2.0 * gamma * pp * pp) / (den**3) / rcut
+    inside = r < rcut
+    rsafe = torch.where(r > 1e-12, r, torch.full_like(r, 1e-12))
+    zero = torch.zeros_like(r)
+    return (torch.where(inside, f, zero),
+            torch.where(inside, dfdr / rsafe, zero),  # ~1/r at 0 (the cusp)
+            torch.where(inside, d2fdr2 + 2.0 * dfdr / rsafe, zero))
+
+
+def basis_all(b: BasisFn, r):
+    if b.kind == "polypade":
+        return polypade_all(r, b.param, b.rcut)
+    if b.kind == "cutoffcusp":
+        return cutoffcusp_all(r, b.param, b.rcut)
+    raise ValueError(f"unknown basis kind {b.kind}")
+
+
+def eval_basis_all(basis, r):
+    """(value, f'/r, lap) of a tuple of BasisFn at r (...,): each (..., nk)."""
+    outs = [basis_all(b, r) for b in basis]
+    return tuple(torch.stack([o[i] for o in outs], dim=-1) for i in range(3))
+
+
+def eval_basis_value(basis, r):
+    return torch.stack([basis_all(b, r)[0] for b in basis], dim=-1)
+
+
+def default_ee_basis(nterms=3, rcut=7.5, gamma=24.0):
+    """Cusp function first, then a polypade ladder."""
+    basis = [BasisFn("cutoffcusp", gamma, rcut)]
+    basis += [BasisFn("polypade", 0.2 * 3.0**k, rcut) for k in range(nterms)]
+    return tuple(basis)
+
+
+def default_ei_basis(nterms=4, rcut=7.5):
+    return tuple(BasisFn("polypade", 0.2 * 3.0**k, rcut) for k in range(nterms))
