@@ -3,43 +3,67 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (pyqmc_tpu_torch, never jax): ccECP/cc-pVDZ
-H2O Slater-Jastrow VMC, 2048 walkers, 50-step blocks, with the energy
-accumulator and its nonlocal ECP quadrature every step.
+Drives the port's two paths (pyqmc_tpu_torch, never jax) on ccECP/cc-pVDZ
+H2O Slater-Jastrow, 2048 walkers, float32, with the energy accumulator and
+its nonlocal ECP quadrature every step: VMC in 50-step blocks, and
+fixed-node DMC with T-moves (`rundmc`) in 10-step blocks.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
-  1. build the CUDA kernels from csrc/ (nvcc, sm_90a)
-  2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, from one state and one set of random streams:
-       float64: sweep positions and every state leaf to 1e-9, acceptance
-       exactly, ECP energy to rtol 1e-9;
-       float32: ECP energy to rtol 1e-4; for the sweep, the walkers whose
+  1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
+  2. each of the four kernels against its plain PyTorch version on the
+     card, at the main path's shapes, from one state and one set of random
+     streams:
+       float64: positions and every state leaf to 1e-9, the same moves
+       accepted, r2p / r2a of the dmc sweep to 1e-9, ECP energy to rtol
+       1e-9;
+       float32: ECP energy to rtol 1e-4; for the sweeps, the walkers whose
        accept decisions differ are counted (<= 1%) and the walkers that
        agree must match to 1e-4 (positions, phases, log|det|, Jastrow U,
-       orbital caches). In float32 the kernel and the plain version sum in
-       other orders, so a move whose acceptance probability lies within
-       rounding of its uniform can flip, after which that walker's chain
-       differs; float64 leaves no such flips at this size. The inverses of
-       agreeing walkers match to 1e-4 in norm, relative, times
-       max(1, cond/100), cond being the largest condition number of the
-       walker's orbital matrices along the sweep: the rounding error of an
-       inverse updated in float32 grows with it, and it is large near a
-       node.
-     then each kernel's time beside its plain version's (CUDA events)
-  3. the main path through the entry points: h2o_setup + vmc(), 4 blocks
-     x 50 steps in float32 with the kernels; the launch counts must be 200
-     sweeps and 200 ECP evaluations; energies finite; the mean total
-     energy of the last two blocks in (-17.2, -16.8) Ha and the acceptance
-     in (0.5, 0.75). These windows catch a missing ECP (+1 Ha) or a
+       orbital caches, r2p, r2a). In float32 the kernel and the plain
+       version sum in other orders, so a move whose acceptance probability
+       lies within rounding of its uniform, a proposal within rounding of
+       the node (dmc sweep) or a selection uniform within rounding of a
+       cumulative probability (T-move sweep) can flip, after which that
+       walker's chain differs; float64 leaves no such flips at this size.
+       The inverses of agreeing walkers match to 1e-4 in norm, relative,
+       times max(1, cond/100), cond being the largest condition number of
+       the walker's orbital matrices along the sweep: the rounding error
+       of an inverse updated in float32 grows with it, and it is large
+       near a node.
+     The vmc sweep and the ECP energy run at tstep 0.5, the dmc sweep and
+     the T-move sweep at tstep 0.02, and the T-move sweep once more at
+     tau 0.5, where a sizeable share of walkers takes a T-move (printed).
+     Then each kernel's time beside its plain version's (CUDA events) and
+     its bound: the larger of its bytes over 3.35 TB/s and its float32
+     operations over 67 TFLOP/s, both counted from this run's shapes and
+     accepted moves (`kernel_bounds`).
+  3. the VMC path through the entry points: h2o_setup + vmc(), 4 blocks
+     x 50 steps with the kernels; the launch counts must be 200 sweeps and
+     200 ECP evaluations; energies finite; the mean total energy of the
+     last two blocks in (-17.2, -16.8) Ha and the acceptance in
+     (0.5, 0.75). These windows catch a missing ECP (+1 Ha) or a
      low-precision matmul bias; they are no bar for speed.
-  4. one 50-step block with the kernels and one with the plain versions,
-     timed in turns (plain, kernel, kernel, plain)
-  5. one kernel-path block under torch.profiler: the device's busy time
-     (the sum of its kernel and copy times), the launches per step, the
-     kernels that take most device time and the port's kernels' device
+  4. one 50-step VMC block with the kernels and one with the plain
+     versions, timed in turns (plain, kernel, kernel, plain)
+  5. one kernel-path VMC block under torch.profiler: the device's busy
+     time (the sum of its kernel and copy times), the launches per step,
+     the kernels that take most device time and the port's kernels' device
      time per launch (phase 2's CUDA-event times include the wrappers'
      host work); the idle share against the traced block's wall time and
      against phase 4's untraced kernel block
+  6. the DMC path through the entry points: h2o_setup (default device) +
+     rundmc(), 6 blocks x 10 steps at tstep 0.02 after 5 VMC warm-up
+     blocks. Launch counts: 60 dmc sweeps, 60 T-move sweeps, 50 vmc sweeps
+     (the warm-up) and 50 + 1 + 6 * 11 = 117 ECP evaluations (warm-up
+     steps, the energy that sets e_trial, and per block its first energy
+     plus one per step). Every energy and weight finite; block mean weight
+     in (0.5, 2); acceptance above 0.9; the mean total energy of the last
+     three blocks in (-17.6, -16.9) Ha and not above the warm-up VMC
+     energy by more than 0.05 Ha. These windows catch a missing ECP, a
+     broken branching weight or a sign error in the T-moves.
+  7. one 10-step DMC block with the kernels and one with the plain
+     versions, timed in turns, then one kernel-path DMC block under
+     torch.profiler as in phase 5
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -56,6 +80,13 @@ import torch
 NCONF = 2048
 NSTEPS = 50
 TSTEP = 0.5
+DMC_TSTEP = 0.02
+DMC_NSTEPS = 10
+DMC_NBLOCKS = 6
+DMC_WARMUP = 5
+TMOVE_BIG_TAU = 0.5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
+FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
 
 def check(cond, msg):
@@ -102,72 +133,143 @@ def randomize_jastrow(params, seed):
     return p
 
 
-def compare_kernels(dtype):
-    """Phase 2 for one dtype. Returns the measured numbers."""
-    from pyqmc_tpu_torch.configs import Geometry
-    from pyqmc_tpu_torch.entry import h2o_setup
-    from pyqmc_tpu_torch.method.vmc import draw_streams
-    from pyqmc_tpu_torch.observables.energy import kinetic_energy
-    from pyqmc_tpu_torch.ops.ecp_energy import build_fused_ecp_energy
-    from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
+# --- the kernels' bounds --------------------------------------------------------
 
-    mol, wf, params, configs, acc = h2o_setup(NCONF, device="cuda", dtype=dtype, seed=11)
-    params = randomize_jastrow(params, 12)
-    pos, wrap = configs.positions, configs.wrap
-    state = wf.recompute(params, pos)
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    streams = draw_streams(gen, 1, pos.shape[1], NCONF, TSTEP, pos.device, dtype)
-    gauss, unif, rot = streams["gauss"][0], streams["unif"][0], streams["rot"][0]
-    sweep = build_fused_sweep(wf, Geometry(), TSTEP)
-    ecp = build_fused_ecp_energy(wf, acc["energy"].ecp_acc)
-    check(sweep is not None and ecp is not None, "main path is outside the kernels' gates")
+def kernel_bounds(wf, ecp_acc, nconf, accepted, itemsize=4):
+    """{kernel: (bytes, operations)} of one launch at `nconf` walkers.
 
-    pk, _, sk, acck = sweep.kernel(params, pos, wrap, state, gauss, unif)
-    pp, _, sp, accp = sweep.plain(params, pos, wrap, state, gauss, unif)
-    ek = ecp.kernel(params, pos, state, rot)
-    ep = ecp.plain(params, pos, state, rot)
-    torch.cuda.synchronize()
-    res = {}
-    scale = float(torch.mean(torch.abs(ep)))
-    ecp_err = torch.abs(ek - ep)
-    res["ecp_max_abs_err"] = float(torch.max(ecp_err))
-    if dtype == torch.float64:
-        # rtol 1e-9 with an absolute floor of 1e-9 of the mean magnitude for
-        # walkers whose channels cancel to ~0
-        check(bool(torch.all(ecp_err <= 1e-9 * (torch.abs(ep) + scale))),
-              f"f64 ECP energy differs: max abs err {res['ecp_max_abs_err']:.3e}")
-        check(float(acck) == float(accp), f"f64 acceptance {float(acck)} != {float(accp)}")
-        worst = 0.0
-        for a, b in zip([pk] + leaves(sk), [pp] + leaves(sp)):
-            err = torch.abs(a - b)
-            worst = max(worst, float(torch.max(err)))
-            # 1e-9 absolute, and relative for inverse entries near a node
-            check(bool(torch.all(err <= 1e-9 * (1 + torch.abs(b)))),
-                  f"f64 sweep state differs: max abs err {float(torch.max(err)):.3e}")
-        res["sweep_max_abs_err"] = worst
-        res["acceptance"] = float(acck) / pos.shape[1]
-        return res
-    check(bool(torch.all(ecp_err <= 1e-4 * (torch.abs(ep) + scale))),
-          f"f32 ECP energy differs: max abs err {res['ecp_max_abs_err']:.3e}")
+    Bytes: every input read once and every output written once (state
+    columns, random streams, tables, per-walker results); scratch that a
+    kernel writes and reads back itself is not counted. Operations: the
+    floating-point operations of the arithmetic in csrc/ (an add, multiply,
+    divide, compare-and-select, sqrt, exp or log counts one; a
+    multiply-add two), for the primitives, channels and bases this system
+    has. The work that depends on the data is counted from this run:
+    `accepted` {kernel: accepted moves in the compared launch}; a rejected
+    move skips the Sherman-Morrison and cache update, a walker that stays
+    skips the T-move's last AO pass.
+    """
+    slater, jastrow = wf.wfs
+    nup, ndn = slater.nup, slater.ndn
+    nelec, n = nup + ndn, max(nup, ndn)
+    spec = slater.orbitals.spec
+
+    def ao_ops(grad, sink_per_row):
+        total = 0
+        for g in spec.groups:
+            l = g.l
+            comps = [(i, j, l - i - j) for i in range(l, -1, -1) for j in range(l - i, -1, -1)]
+            nc, ns = len(comps), 2 * l + 1
+            nonzero = sum(1 for c in comps for x in c if x > 0)
+            for coef in g.coef:
+                prims = int(np.count_nonzero(coef))
+                ops = 8 + prims * (6 if grad else 4) + 3 * l + 3 * nc + 2 * nc * ns
+                if grad:
+                    ops += 5 * nc + 5 * nonzero + 6 * nc * ns
+                total += ops + ns * sink_per_row
+        return total
+
+    basis_ops = {("polypade", False): 12, ("polypade", True): 22,
+                 ("cutoffcusp", False): 15, ("cutoffcusp", True): 20}
+
+    def jastrow_ops(grad):
+        per_term = 2 + (7 if grad else 0)
+        a = sum(basis_ops[(b.kind, grad)] + per_term for b in jastrow.a_basis)
+        b = sum(basis_ops[(b.kind, grad)] + per_term for b in jastrow.b_basis)
+        return jastrow.natom * (9 + a) + (nelec - 1) * (9 + b)
+
+    legendre_ops = {0: 0, 1: 0, 2: 3, 3: 5, 4: 7, 5: 10, 6: 12}
+
+    def quad_ops(per_point):
+        """One electron's quadrature: per atom the radial channels, per
+        point the rotation, position, cos(theta), projectors and `per_point`."""
+        total = 0
+        for a, naip in zip(ecp_acc.nl_atoms, ecp_acc.atom_naip):
+            chans = a.nonlocal_channels
+            total += 9 + sum(2 + sum(6 + abs(p - 2) for p in ch.powers) for ch in chans)
+            total += naip * (15 + 6 + 6 + 1 + sum(legendre_ops[ch.l] + 2 for ch in chans)
+                             + per_point)
+        return total
+
+    update_ops = 2 * n * n + n * (3 * (n - 1) + 1) + 4 + 1  # Sherman-Morrison, phase, U
+    nq = ecp_acc.nq_total
+    nao = spec.nao
+    rows = 3 * nelec + nup * nup + ndn * ndn + 4 + 4 * nup * nup + 4 * ndn * ndn + 1
+    tab_bytes = wf_tables_bytes(wf, ecp_acc, itemsize)
+    out = {}
+    for name, dmc in (("vmc_sweep", False), ("dmc_sweep", True)):
+        move = (8 * n + 3 + 2 * (jastrow_ops(True) + 3) + 2 * (14 if dmc else 10) + 6
+                + ao_ops(True, 8 * n) + 8 * n + 3 + 3 + 3 + 5 + 9 + 5 + 4 + 2 + 1
+                + (13 if dmc else 0))
+        ops = nconf * nelec * move + accepted[name] * update_ops
+        rows_io = 2 * rows + 3 * nelec + nelec + (3 if dmc else 1)
+        out[name] = (rows_io * nconf * itemsize + tab_bytes, ops)
+    point = ao_ops(False, 2) + jastrow_ops(False) + 3 + 2
+    per_electron = 2 * nao * n + jastrow_ops(False) + quad_ops(point) + 1
+    out["ecp_energy"] = ((3 * nelec + nup * nup + ndn * ndn + 9 * nelec + 1) * nconf * itemsize
+                         + wf_tables_bytes(wf, ecp_acc, itemsize), nconf * nelec * per_electron)
+    point = ao_ops(False, 2 * n) + 2 * n + jastrow_ops(False) + 3 + 1 + 3
+    per_electron = jastrow_ops(False) + quad_ops(point) + 1 + 1 + 5 * nq
+    moved = (5 * nq + 3 + 9 + 21 + jastrow_ops(False) + ao_ops(True, 8 * n) + update_ops + 2)
+    out["tmove_sweep"] = ((2 * rows + 9 * nelec + 2 * nelec) * nconf * itemsize + tab_bytes,
+                          nconf * nelec * per_electron + accepted["tmove_sweep"] * moved)
+    return out
+
+
+def wf_tables_bytes(wf, ecp_acc, itemsize):
+    from pyqmc_tpu_torch.ops.move_sweep import SJTables
+
+    t = SJTables(*wf.wfs, ecp_acc=ecp_acc)
+    return t.ntab * itemsize + 4 * len(t._meta)
+
+
+def bound_ms(nbytes, ops):
+    """(the least milliseconds the card could take, what bounds it)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# --- phase 2: kernels against their plain versions ------------------------------
+
+def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=()):
+    """One sweep's kernel output against its plain version's: (positions,
+    state) pairs, plus `extras`, per-walker tensors as (name, kernel,
+    plain). Returns the measured numbers; raises on disagreement."""
+    (pk, sk), (pp, sp) = out_k, out_p
     moved_k = torch.any(pk != pos, dim=-1)
     moved_p = torch.any(pp != pos, dim=-1)
     differ = torch.any(moved_k != moved_p, dim=1)  # (nconf,)
     ndiff = int(torch.sum(differ))
-    res["walkers_with_flipped_accepts"] = ndiff
-    check(ndiff <= 0.01 * NCONF, f"f32 sweep: {ndiff} walkers with differing accepts")
+    res = {"accepted_moves": int(torch.sum(moved_k)),
+           "walkers_moved": int(torch.sum(torch.any(moved_k, dim=1))),
+           "walkers_with_flipped_accepts": ndiff}
+    if dtype == torch.float64:
+        check(ndiff == 0, f"f64 {label}: {ndiff} walkers with differing accepts")
+        worst = 0.0
+        for a, b in zip([pk] + leaves(sk) + [e[1] for e in extras],
+                        [pp] + leaves(sp) + [e[2] for e in extras]):
+            err = torch.abs(a - b)
+            worst = max(worst, float(torch.max(err)))
+            # 1e-9 absolute, and relative for inverse entries near a node
+            check(bool(torch.all(err <= 1e-9 * (1 + torch.abs(b)))),
+                  f"f64 {label}: state differs, max abs err {float(torch.max(err)):.3e}")
+        res["max_abs_err"] = worst
+        return res
+    check(ndiff <= 0.01 * pos.shape[0], f"f32 {label}: {ndiff} walkers with differing accepts")
     agree = ~differ
     sl_k, j_k = sk
     sl_p, j_p = sp
     pairs = [(pk, pp), (sl_k.phase_up, sl_p.phase_up), (sl_k.phase_dn, sl_p.phase_dn),
              (sl_k.logdet_up, sl_p.logdet_up), (sl_k.logdet_dn, sl_p.logdet_dn), (j_k.u, j_p.u),
              (sl_k.mog_up, sl_p.mog_up), (sl_k.mog_dn, sl_p.mog_dn)]
+    pairs += [(e[1], e[2]) for e in extras]
     worst = 0.0
     for a, b in pairs:
         err = torch.abs(a - b)[agree]
         worst = max(worst, float(torch.max(err)))
         check(bool(torch.all(err <= 1e-4 * (1 + torch.abs(b[agree])))),
-              f"f32 sweep: agreeing walkers differ by {float(torch.max(err)):.3e}")
-    res["sweep_max_abs_err"] = worst
+              f"f32 {label}: agreeing walkers differ by {float(torch.max(err)):.3e}")
+    res["max_abs_err"] = worst
     # The inverses are updated move by move (Sherman-Morrison), so their
     # float32 error follows the largest condition number of the orbital
     # matrices along the sweep: after move k the first k electrons sit at
@@ -202,31 +304,121 @@ def compare_kernels(dtype):
         bound = 1e-4 * torch.clamp(cond / 100, min=1.0)
         bad = agree & ~(rel <= bound)
         check(not bool(torch.any(bad)),
-              f"f32 sweep: {int(torch.sum(bad))} agreeing walkers' {spin} inverses differ "
+              f"f32 {label}: {int(torch.sum(bad))} agreeing walkers' {spin} inverses differ "
               f"beyond 1e-4 * max(1, cond/100): {json.dumps(res[f'inverse_{spin}'])}")
+    return res
+
+
+def compare_kernels(dtype):
+    """Phase 2 for one dtype: all four kernels. Returns the measured numbers."""
+    from pyqmc_tpu_torch.configs import Geometry
+    from pyqmc_tpu_torch.entry import h2o_setup
+    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams
+    from pyqmc_tpu_torch.method.vmc import draw_streams
+    from pyqmc_tpu_torch.observables.energy import kinetic_energy
+    from pyqmc_tpu_torch.ops.ecp_energy import build_fused_ecp_energy
+    from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
+    from pyqmc_tpu_torch.ops.tmove_sweep import build_fused_tmove_sweep
+
+    mol, wf, params, configs, acc = h2o_setup(NCONF, device="cuda", dtype=dtype, seed=11)
+    params = randomize_jastrow(params, 12)
+    pos, wrap = configs.positions, configs.wrap
+    nelec = pos.shape[1]
+    state = wf.recompute(params, pos)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    streams = draw_streams(gen, 1, nelec, NCONF, TSTEP, pos.device, dtype)
+    gauss, unif, rot = streams["gauss"][0], streams["unif"][0], streams["rot"][0]
+    dstreams = draw_dmc_streams(gen, 1, nelec, NCONF, DMC_TSTEP, pos.device, dtype)
+    dgauss, dunif = dstreams["gauss"][0], dstreams["unif"][0]
+    tqrot, u_sel, u_acc = dstreams["tqrot"][0], dstreams["u_sel"][0], dstreams["u_acc"][0]
+    ecp_acc = acc["energy"].ecp_acc
+    sweep = build_fused_sweep(wf, Geometry(), TSTEP)
+    dsweep = build_fused_sweep(wf, Geometry(), DMC_TSTEP, mode="dmc")
+    tmove = build_fused_tmove_sweep(wf, Geometry(), ecp_acc, DMC_TSTEP)
+    tmove_big = build_fused_tmove_sweep(wf, Geometry(), ecp_acc, TMOVE_BIG_TAU)
+    ecp = build_fused_ecp_energy(wf, ecp_acc)
+    check(None not in (sweep, dsweep, tmove, tmove_big, ecp),
+          "main path is outside the kernels' gates")
+    res = {}
+
+    # K2, the ECP energy
+    ek = ecp.kernel(params, pos, state, rot)
+    ep = ecp.plain(params, pos, state, rot)
+    torch.cuda.synchronize()
+    scale = float(torch.mean(torch.abs(ep)))
+    ecp_err = torch.abs(ek - ep)
+    res["ecp_energy"] = {"max_abs_err": float(torch.max(ecp_err))}
+    # rtol with an absolute floor at the mean magnitude for walkers whose
+    # channels cancel to ~0
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    check(bool(torch.all(ecp_err <= tol * (torch.abs(ep) + scale))),
+          f"{dtype} ECP energy differs: max abs err {res['ecp_energy']['max_abs_err']:.3e}")
+
+    # K1, the vmc sweep
+    pk, _, sk, acck = sweep.kernel(params, pos, wrap, state, gauss, unif)
+    pp, _, sp, accp = sweep.plain(params, pos, wrap, state, gauss, unif)
+    res["vmc_sweep"] = compare_sweeps("vmc sweep", dtype, wf, params, pos, (pk, sk), (pp, sp))
+    res["vmc_sweep"]["acceptance"] = float(acck) / nelec
+    if dtype == torch.float64:
+        check(float(acck) == float(accp), f"f64 vmc acceptance {float(acck)} != {float(accp)}")
+
+    # K4, the dmc sweep
+    pk, _, sk, (acck, r2pk, r2ak) = dsweep.kernel(params, pos, wrap, state, dgauss, dunif)
+    pp, _, sp, (accp, r2pp, r2ap) = dsweep.plain(params, pos, wrap, state, dgauss, dunif)
+    res["dmc_sweep"] = compare_sweeps("dmc sweep", dtype, wf, params, pos, (pk, sk), (pp, sp),
+                                      extras=[("r2p", r2pk, r2pp), ("r2a", r2ak, r2ap)])
+    res["dmc_sweep"]["acceptance"] = float(acck) / nelec
+    res["dmc_sweep"]["mean_tdamp"] = float(torch.mean(r2ak / r2pk))
+    if dtype == torch.float64:
+        check(float(acck) == float(accp), f"f64 dmc acceptance {float(acck)} != {float(accp)}")
+
+    # K5, the T-move sweep, at the main path's tau and at a large one
+    for name, fn in (("tmove_sweep", tmove), ("tmove_sweep_big_tau", tmove_big)):
+        pk, _, sk = fn.kernel(params, pos, wrap, state, tqrot, u_sel, u_acc)
+        pp, _, sp = fn.plain(params, pos, wrap, state, tqrot, u_sel, u_acc)
+        res[name] = compare_sweeps(f"T-move sweep tau={fn.tau}", dtype, wf, params, pos,
+                                   (pk, sk), (pp, sp))
+        res[name]["tau"] = fn.tau
+        res[name]["share_of_walkers_taking_a_tmove"] = res[name]["walkers_moved"] / NCONF
+    check(res["tmove_sweep_big_tau"]["walkers_moved"] >= 0.02 * NCONF,
+          f"only {res['tmove_sweep_big_tau']['walkers_moved']} walkers took a T-move at "
+          f"tau {TMOVE_BIG_TAU}: the comparison would show nothing")
+    if dtype == torch.float64:
+        return res
 
     # times at the main path's shapes, float32
-    res["sweep_ms"] = cuda_ms(lambda: sweep.kernel(params, pos, wrap, state, gauss, unif), 20)
-    res["sweep_plain_ms"] = cuda_ms(lambda: sweep.plain(params, pos, wrap, state, gauss, unif), 5)
-    res["ecp_ms"] = cuda_ms(lambda: ecp.kernel(params, pos, state, rot), 20)
-    res["ecp_plain_ms"] = cuda_ms(lambda: ecp.plain(params, pos, state, rot), 5)
+    calls = {
+        "vmc_sweep": (sweep, (params, pos, wrap, state, gauss, unif)),
+        "ecp_energy": (ecp, (params, pos, state, rot)),
+        "dmc_sweep": (dsweep, (params, pos, wrap, state, dgauss, dunif)),
+        "tmove_sweep": (tmove, (params, pos, wrap, state, tqrot, u_sel, u_acc)),
+    }
+    for name, (fn, args) in calls.items():
+        res[name]["ms"] = cuda_ms(lambda: fn.kernel(*args), 20)
+        res[name]["plain_ms"] = cuda_ms(lambda: fn.plain(*args), 5)
+    accepted = {k: res[k]["accepted_moves"] for k in ("vmc_sweep", "dmc_sweep", "tmove_sweep")}
+    for name, (nbytes, ops) in kernel_bounds(wf, ecp_acc, NCONF, accepted).items():
+        ms, by = bound_ms(nbytes, ops)
+        res[name].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
     # the rest of a step, plain PyTorch on the main path
     res["kinetic_ms"] = cuda_ms(lambda: kinetic_energy(wf, params, state, pos), 5)
     res["coulomb_ms"] = cuda_ms(lambda: acc["energy"].coulomb.energy(pos), 5)
     return res
 
 
-def traced_block(block_fn, params, pos, wrap, gen):
-    """Runs one block under torch.profiler (device activity only).
-    Returns (device busy us, device events, top 5 {name: ms}, the port's
-    kernels {name: [launches, ms per launch]}, wall s)."""
+# --- traces -----------------------------------------------------------------------
+
+def traced(run):
+    """Runs run() under torch.profiler (device activity only). Returns
+    (device busy us, device events, top 5 {name: ms}, the port's kernels
+    {name: [launches, ms per launch]}, wall s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        block_fn(params, pos, wrap, gen)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_name, ours = {}, {}
@@ -237,7 +429,7 @@ def traced_block(block_fn, params, pos, wrap, gen):
             us = e.time_range.elapsed_us()
             per_name[e.name] = per_name.get(e.name, 0.0) + us
             if "pq::" in e.name:  # csrc/ kernels live in namespace pq
-                name = e.name.split("pq::")[1].split("<")[0]
+                name = e.name.split("pq::")[1].split("(")[0]
                 n, tot = ours.get(name, (0, 0.0))
                 ours[name] = (n + 1, tot + us)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
@@ -245,26 +437,61 @@ def traced_block(block_fn, params, pos, wrap, gen):
     return sum(per_name.values()), nkern, {k[:80]: v / 1e3 for k, v in top}, ours, wall
 
 
+def report_trace(phase, what, nsteps, trace, untraced_s):
+    busy_us, nkern, top, ours, t_traced = trace
+    print(f"{phase}: traced {what} {t_traced:.4f} s wall, device busy {busy_us / 1e6:.4f} s "
+          f"({nkern} device events, {nkern / nsteps:.0f} per step); idle share "
+          f"{1 - busy_us / 1e6 / t_traced:.4f} of the traced block, "
+          f"{1 - busy_us / 1e6 / untraced_s:.4f} of the untraced block; the port's kernels "
+          f"[launches, device ms per launch]: {json.dumps(ours)}; top device time (ms): "
+          f"{json.dumps(top)}", flush=True)
+    check(busy_us > 0, "the profiler recorded no device time")
+    return ours
+
+
+def timed_in_turns(fns, run):
+    """run(fn) for fn in plain, kernel, kernel, plain; returns mean seconds
+    of each and the four times."""
+    times = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, fns[name])
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    return float(np.mean(times["kernel"])), float(np.mean(times["plain"])), times
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0: the card (and the package: nothing is printed without both)
     check(torch.cuda.is_available(), "no CUDA device; the port's kernels run only on a GPU")
-    from pyqmc_tpu_torch.ops import _build, ecp_energy, move_sweep
+    from pyqmc_tpu_torch.ops import _build, ecp_energy, move_sweep, tmove_sweep
 
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"phase 0: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    counters = {"vmc_sweep": move_sweep.LAUNCHES, "ecp_energy": ecp_energy.LAUNCHES,
+                "dmc_sweep": move_sweep.DMC_LAUNCHES, "tmove_sweep": tmove_sweep.LAUNCHES}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
 
     # phase 1: build
     t0 = time.perf_counter()
-    so = _build.build()
+    libs = _build.build()
     _build.library()
-    print(f"phase 1: built {so} in {time.perf_counter() - t0:.1f} s", flush=True)
-    with open(so[:-3] + ".log") as f:
-        for line in f:
-            if "Compiling entry function" in line or "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip().replace("ptxas info    : ", ""), flush=True)
+    print(f"phase 1: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for so in libs.values():
+        with open(so[:-3] + ".log") as f:
+            for line in f:
+                if "Compiling entry function" in line or "registers" in line or "spill" in line:
+                    print("  ptxas:", line.strip().replace("ptxas info    : ", ""), flush=True)
 
     # phase 2: kernels against their plain versions
     r64 = compare_kernels(torch.float64)
@@ -272,27 +499,26 @@ def main():
     r32 = compare_kernels(torch.float32)
     print("phase 2 float32: " + json.dumps(r32), flush=True)
 
-    # phase 3: the main path through the entry points
+    # phase 3: the VMC path through the entry points
     from pyqmc_tpu_torch.entry import h2o_setup
     from pyqmc_tpu_torch.method.vmc import vmc
 
     mol, wf, params, configs, acc = h2o_setup(NCONF, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    move_sweep.LAUNCHES.reset()
-    ecp_energy.LAUNCHES.reset()
+    reset_counts()
     t0 = time.perf_counter()
     blocks, configs = vmc(wf, params, configs, nblocks=4, nsteps_per_block=NSTEPS, tstep=TSTEP,
                           accumulators=acc, generator=gen)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
-    launches = {"vmc_sweep": move_sweep.LAUNCHES.n, "ecp_energy": ecp_energy.LAUNCHES.n}
+    launches = read_counts()
     for b in blocks:
         print(f"phase 3 block {b['block']}: E={b['energytotal']:.6f} ecp={b['energyecp']:.6f} "
               f"ke={b['energyke']:.6f} acc={b['acceptance']:.4f} "
               f"host time {b['block time']:.3f} s",
               flush=True)
-    check(launches == {"vmc_sweep": 4 * NSTEPS, "ecp_energy": 4 * NSTEPS},
-          f"kernel launches on the main path: {launches}")
+    check(launches == {"vmc_sweep": 4 * NSTEPS, "ecp_energy": 4 * NSTEPS, "dmc_sweep": 0,
+                       "tmove_sweep": 0}, f"kernel launches on the VMC path: {launches}")
     for b in blocks:
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
               f"non-finite energies in block {b['block']}")
@@ -303,7 +529,7 @@ def main():
     print(f"phase 3: launches {launches}, E(last 2 blocks)={e_last:.6f} Ha, acc={a_last:.4f}, "
           f"{t_main:.2f} s for 4 blocks", flush=True)
 
-    # phase 4: one block with the kernels, one with the plain versions
+    # phase 4: one VMC block with the kernels, one with the plain versions
     from pyqmc_tpu_torch.method.vmc import make_vmc_block
     from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
     from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
@@ -311,41 +537,114 @@ def main():
     acc_plain = {"energy": EnergyAccumulator(mol, ecp_acc=ECPAccumulator(mol, fused=False))}
     fns = {"kernel": make_vmc_block(wf, acc, configs.geometry, TSTEP, NSTEPS, fused=True),
            "plain": make_vmc_block(wf, acc_plain, configs.geometry, TSTEP, NSTEPS, fused=False)}
-    pos, wrap = configs.positions, configs.wrap
-    times = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pos, wrap, avg = fns[name](params, pos, wrap, gen)
-        check(bool(torch.isfinite(avg["energytotal"])), f"non-finite {name} block energy")
-        torch.cuda.synchronize()
-        times[name].append(time.perf_counter() - t0)
-    tk, tp = float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
-    print(f"phase 4: 50-step block with kernels {tk:.4f} s ({NCONF * NSTEPS / tk:.1f} "
+    walk = {"pos": configs.positions, "wrap": configs.wrap}
+
+    def vmc_block(name, fn):
+        walk["pos"], walk["wrap"], avg = fn(params, walk["pos"], walk["wrap"], gen)
+        check(bool(torch.isfinite(avg["energytotal"])), f"non-finite {name} VMC block energy")
+
+    tk, tp, times = timed_in_turns(fns, vmc_block)
+    print(f"phase 4: 50-step VMC block with kernels {tk:.4f} s ({NCONF * NSTEPS / tk:.1f} "
           f"walker-steps/s), plain {tp:.4f} s ({NCONF * NSTEPS / tp:.1f} walker-steps/s); "
           f"runs {json.dumps(times)}", flush=True)
 
-    # phase 5: one traced kernel block; the device's busy time and idle share
-    busy_us, nkern, top, ours, t_traced = traced_block(fns["kernel"], params, pos, wrap, gen)
-    print(f"phase 5: traced kernel block {t_traced:.4f} s wall, device busy {busy_us / 1e6:.4f} s "
-          f"({nkern} device events, {nkern / NSTEPS:.0f} per step); idle share "
-          f"{1 - busy_us / 1e6 / t_traced:.4f} of the traced block, "
-          f"{1 - busy_us / 1e6 / tk:.4f} of the untraced phase-4 block; the port's kernels "
-          f"[launches, device ms per launch]: {json.dumps(ours)}; top device time (ms): "
-          f"{json.dumps(top)}", flush=True)
-    check(busy_us > 0, "the profiler recorded no device time")
+    # phase 5: one traced kernel VMC block; the device's busy time and idle share
+    ours_vmc = report_trace("phase 5", "kernel VMC block", NSTEPS,
+                            traced(lambda: vmc_block("traced", fns["kernel"])), tk)
+
+    # phase 6: the DMC path through the entry points, on the default device
+    from pyqmc_tpu_torch.method.dmc import make_dmc_block, rundmc
+
+    mol, wf, params, configs, acc = h2o_setup(NCONF, dtype=torch.float32)
+    check(configs.positions.device.type == "cuda", "h2o_setup's default device is not the GPU")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    reset_counts()
+    t0 = time.perf_counter()
+    dblocks, dconfigs, weights = rundmc(
+        wf, params, configs, nblocks=DMC_NBLOCKS, nsteps_per_block=DMC_NSTEPS, tstep=DMC_TSTEP,
+        energy_acc=acc["energy"], generator=gen, warmup_vmc_blocks=DMC_WARMUP)
+    torch.cuda.synchronize()
+    t_dmc = time.perf_counter() - t0
+    dlaunches = read_counts()
+    for b in dblocks:
+        print(f"phase 6 block {b['block']}: E={b['energytotal']:.6f} w={b['weight']:.5f} "
+              f"e_trial={b['e_trial']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    nwarm = DMC_WARMUP * 10  # rundmc's warm-up blocks have 10 steps
+    expect = {"vmc_sweep": nwarm, "dmc_sweep": DMC_NBLOCKS * DMC_NSTEPS,
+              "tmove_sweep": DMC_NBLOCKS * DMC_NSTEPS,
+              # warm-up steps, the energy that sets e_trial, and per block its
+              # first energy plus one per step
+              "ecp_energy": nwarm + 1 + DMC_NBLOCKS * (DMC_NSTEPS + 1)}
+    check(dlaunches == expect, f"kernel launches on the DMC path: {dlaunches}, expected {expect}")
+    for b in dblocks:
+        check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
+        check(0.5 < b["weight"] < 2.0, f"block mean weight {b['weight']} outside (0.5, 2)")
+        check(b["acceptance"] > 0.9, f"DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(weights))) and bool(torch.all(weights > 0)),
+          "final weights are not finite and positive")
+    check(dconfigs.positions.shape == (NCONF, 8, 3), "final walkers have the wrong shape")
+    e_dmc = float(np.mean([b["energytotal"] for b in dblocks[-3:]]))
+    # the energy window opens with the warm-up walkers' mean local energy:
+    # after block 0, e_est is the mean of that energy and block 0's
+    e_warm = 2 * dblocks[0]["e_est"] - dblocks[0]["energytotal"]
+    check(-17.6 < e_dmc < -16.9, f"DMC energy {e_dmc} outside (-17.6, -16.9) Ha")
+    check(e_dmc < e_warm + 0.05, f"DMC energy {e_dmc} above the warm-up VMC energy {e_warm}")
+    print(f"phase 6: launches {dlaunches}, E(last 3 blocks)={e_dmc:.6f} Ha, warm-up VMC "
+          f"E={e_warm:.6f} Ha, {t_dmc:.2f} s for {DMC_WARMUP} warm-up + {DMC_NBLOCKS} DMC blocks",
+          flush=True)
+
+    # phase 7: one DMC block with the kernels, one with the plain versions, one traced
+    acc_plain = EnergyAccumulator(mol, ecp_acc=ECPAccumulator(mol, fused=False))
+    dfns = {"kernel": make_dmc_block(wf, acc["energy"], dconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
+                                     fused=True)[0],
+            "plain": make_dmc_block(wf, acc_plain, dconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
+                                    fused=False)[0]}
+    last = dblocks[-1]
+    walk = {"pos": dconfigs.positions, "wrap": dconfigs.wrap, "w": weights}
+
+    def dmc_block(name, fn):
+        walk["pos"], walk["wrap"], walk["w"], avg = fn(
+            params, walk["pos"], walk["wrap"], walk["w"], gen, last["e_trial"], last["e_est"],
+            0.5)
+        check(bool(torch.isfinite(avg["energytotal"])), f"non-finite {name} DMC block energy")
+
+    reset_counts()
+    dtk, dtp, dtimes = timed_in_turns(dfns, dmc_block)
+    check(read_counts() == {"vmc_sweep": 0, "dmc_sweep": 2 * DMC_NSTEPS,
+                            "tmove_sweep": 2 * DMC_NSTEPS, "ecp_energy": 2 * (DMC_NSTEPS + 1)},
+          f"the plain DMC blocks launched kernels: {read_counts()}")
+    print(f"phase 7: {DMC_NSTEPS}-step DMC block with kernels {dtk:.4f} s "
+          f"({NCONF * DMC_NSTEPS / dtk:.1f} walker-steps/s), plain {dtp:.4f} s "
+          f"({NCONF * DMC_NSTEPS / dtp:.1f} walker-steps/s); runs {json.dumps(dtimes)}",
+          flush=True)
+    ours_dmc = report_trace("phase 7", "kernel DMC block", DMC_NSTEPS,
+                            traced(lambda: dmc_block("traced", dfns["kernel"])), dtk)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    kernels = [
-        {"name": "vmc_sweep", "route": "cuda", "source": "pyqmc_tpu_torch/csrc/vmc_sweep.cu",
-         "replaces": "pyqmc_tpu/ops/move_pallas.py:278", "launches": launches["vmc_sweep"],
-         "max_abs_err": r32["sweep_max_abs_err"], "ms": r32["sweep_ms"],
-         "plain_ms": r32["sweep_plain_ms"]},
-        {"name": "ecp_energy", "route": "cuda", "source": "pyqmc_tpu_torch/csrc/ecp_energy.cu",
-         "replaces": "pyqmc_tpu/ops/move_pallas.py:1151", "launches": launches["ecp_energy"],
-         "max_abs_err": r32["ecp_max_abs_err"], "ms": r32["ecp_ms"],
-         "plain_ms": r32["ecp_plain_ms"]},
-    ]
+    def device_ms(ours, *names):
+        found = [ours[n][1] for n in ours if n.split("<")[0] in names]
+        return sum(found) if found else None
+
+    replaces = {"vmc_sweep": "pyqmc_tpu/ops/move_pallas.py:278",
+                "ecp_energy": "pyqmc_tpu/ops/move_pallas.py:1151",
+                "dmc_sweep": "pyqmc_tpu/ops/move_pallas.py:278",
+                "tmove_sweep": "pyqmc_tpu/ops/move_pallas.py:727"}
+    kernels = []
+    for name in ("vmc_sweep", "ecp_energy", "dmc_sweep", "tmove_sweep"):
+        on_vmc = name in ("vmc_sweep", "ecp_energy")
+        n = (launches if on_vmc else dlaunches)[name]
+        check(n > 0 and dlaunches[name] > 0, f"{name} was not launched on its path")
+        r = r32[name]
+        trace_names = {"vmc_sweep": ("sweep_kernel",), "dmc_sweep": ("sweep_kernel",),
+                       "ecp_energy": ("ecp_partial_kernel", "ecp_reduce_kernel"),
+                       "tmove_sweep": ("tmove_sweep_kernel",)}[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"pyqmc_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": n, "launches_dmc_path": dlaunches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": device_ms(ours_vmc if on_vmc else ours_dmc, *trace_names)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .utils.dtypes import real_dtype, resolve_device
+
 
 class Geometry:
     """Open-boundary geometry: `enforce` is the identity."""
@@ -48,13 +50,17 @@ class Configs:
 
 
 def initial_guess(mol, nconfig, r=1.0, generator: Optional[torch.Generator] = None,
-                  device="cpu", dtype=torch.float64):
+                  device=None, dtype=None):
     """Place electrons near nuclei in proportion to their (effective) charge,
     plus Gaussian noise of width r (reference method/mc.py:25-73).
 
+    The walkers land on the GPU unless `device` says otherwise
+    (utils/dtypes.resolve_device); dtype defaults to real_dtype(device).
     The noise is drawn in float64 on the generator's device (CPU by
     default), so a seed gives the same walkers on every device.
     """
+    device = resolve_device(device)
+    dtype = dtype or real_dtype(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     coords = np.asarray(mol.atom_coords)

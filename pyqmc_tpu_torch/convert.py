@@ -14,14 +14,17 @@ import torch
 
 from .models.jastrow import JastrowState
 from .models.slater import SlaterState
+from .utils.dtypes import real_dtype, resolve_device
 
 
 def _t(x, device, dtype):
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    device = resolve_device(device)
+    return torch.tensor(np.asarray(x), dtype=dtype or real_dtype(device), device=device)
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float64):
-    """Nested dict of arrays -> the same nesting of tensors."""
+def params_from_numpy(tree, device=None, dtype=None):
+    """Nested dict of arrays -> the same nesting of tensors, on the GPU
+    unless `device` says otherwise (utils/dtypes.resolve_device)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return _t(tree, device, dtype)
@@ -34,10 +37,18 @@ def params_to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def slater_state_from_numpy(st, device="cpu", dtype=torch.float64) -> SlaterState:
+def slater_state_from_numpy(st, device=None, dtype=None) -> SlaterState:
     """A JAX SlaterState (fields as numpy arrays) -> the port's SlaterState."""
     return SlaterState(*(_t(getattr(st, f), device, dtype) for f in SlaterState._fields))
 
 
-def jastrow_state_from_numpy(st, device="cpu", dtype=torch.float64) -> JastrowState:
+def jastrow_state_from_numpy(st, device=None, dtype=None) -> JastrowState:
     return JastrowState(*(_t(getattr(st, f), device, dtype) for f in JastrowState._fields))
+
+
+def dmc_streams_from_numpy(streams, device=None, dtype=None):
+    """One DMC block's random streams (method/dmc.py: gauss, unif, erot,
+    erot0, tqrot, u_sel, u_acc, and u_branch for the comb) from numpy
+    arrays, so that the port consumes the numbers another implementation
+    drew."""
+    return {k: _t(v, device, dtype) for k, v in streams.items()}

@@ -7,8 +7,7 @@
 // nonlocal atom, the radial channels times Legendre projectors, value-only
 // AOs dotted with wvec (the Slater ratio) and the Jastrow value ratio.
 // Quadrature order, rsafe, the r < rmax mask, the (2l+1) factor and the
-// r^(n-2) powers follow the Pallas kernel (move_pallas.py:246-275,
-// 1265-1286).
+// r^(n-2) powers follow the Pallas kernel (ecp_device.cuh).
 //
 // Layout: walker-minor (row r of walker w at [r * nconf + w]); thread
 // t = e * nconf + w, so a warp reads one electron's rows of 32 walkers
@@ -23,6 +22,7 @@
 // scheduler on an H100.
 #include <cuda_runtime.h>
 
+#include "ecp_device.cuh"
 #include "gto_device.cuh"
 #include "sj_device.cuh"
 
@@ -37,8 +37,6 @@ struct DotSink {
     acc += v * wvec[row * stride];
   }
 };
-
-constexpr int MAXCHAN = 8;
 
 template <typename T>
 __global__ void ecp_partial_kernel(const T* __restrict__ pos, const T* __restrict__ invu,
@@ -83,35 +81,12 @@ __global__ void ecp_partial_kernel(const T* __restrict__ pos, const T* __restric
   T nl = T(0);
   const int nq = meta[M_NQATOMS];
   const int* qatoms = meta + meta[M_I_QATOMS];
+  QuadAtom<T> atom;
   for (int qa = 0; qa < nq; ++qa) {
-    const int* q = qatoms + qa * QATOM_INTS;
-    const T* coord = tab + q[Q_F_COORD];
-    const T dx = ex - coord[0], dy = ey - coord[1], dz = ez - coord[2];
-    const T r = dsqrt(dx * dx + dy * dy + dz * dz);
-    const T rsafe = r > T(1e-12) ? r : T(1e-12);
-    const T inside = r < rmax ? T(1) : T(0);
-    const int nchan = q[Q_NCHAN];
-    const int* chans = meta + q[Q_I_CHANS];
-    T vch[MAXCHAN];
-    for (int c = 0; c < nchan; ++c) {
-      const int* ch = chans + c * CHAN_INTS;
-      const T* terms = tab + ch[C_F_TERMS];
-      T v = T(0);
-      for (int m = 0; m < ch[C_NTERM]; ++m)
-        v += terms[3 * m] * ipow(r, (int)terms[3 * m + 2] - 2) * dexp(-terms[3 * m + 1] * r * r);
-      vch[c] = T(2 * ch[C_L] + 1) * v * inside;
-    }
-    const T* pts = tab + q[Q_F_PTS];
-    for (int ip = 0; ip < q[Q_NPTS]; ++ip) {
-      const T px = pts[4 * ip], py = pts[4 * ip + 1], pz = pts[4 * ip + 2], wq = pts[4 * ip + 3];
-      const T ddx = R[0] * px + R[1] * py + R[2] * pz;
-      const T ddy = R[3] * px + R[4] * py + R[5] * pz;
-      const T ddz = R[6] * px + R[7] * py + R[8] * pz;
-      const T costh = (ddx * dx + ddy * dy + ddz * dz) / rsafe;
-      T Tq = T(0);
-      for (int c = 0; c < nchan; ++c) Tq += vch[c] * legendre(chans[c * CHAN_INTS + C_L], costh);
-      Tq *= wq;
-      const T ax = coord[0] + r * ddx, ay = coord[1] + r * ddy, az = coord[2] + r * ddz;
+    atom.set(tab, meta, qatoms + qa * QATOM_INTS, ex, ey, ez, rmax, true);
+    for (int ip = 0; ip < atom.q[Q_NPTS]; ++ip) {
+      T ax, ay, az;
+      const T Tq = atom.point(tab, R, ip, ax, ay, az, true);
       DotSink<T> sink;
       sink.wvec = wv;
       sink.stride = wst;

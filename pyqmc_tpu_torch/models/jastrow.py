@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import DeviceConstants
+from ..utils.dtypes import real_dtype, resolve_device
 from . import func3d
 
 
@@ -39,9 +40,11 @@ class JastrowSpin:
                                      np.ones(self.ndn, dtype=np.int64)])
         self._const = DeviceConstants(atoms=self.atom_coords, spin=self._spin)
 
-    def make_params(self, device="cpu", dtype=torch.float64):
+    def make_params(self, device=None, dtype=None):
         """acoeff (natom, na, 2) zeros; bcoeff (nb, 3) with the e-e cusp
         (0.25, 0.5, 0.25) on the leading cutoffcusp function."""
+        device = resolve_device(device)
+        dtype = dtype or real_dtype(device)
         na, nb = len(self.a_basis), len(self.b_basis)
         acoeff = torch.zeros((self.natom, na, 2), dtype=dtype, device=device)
         bcoeff = torch.zeros((nb, 3), dtype=dtype, device=device)

@@ -7,6 +7,8 @@ laplacian cross term uses sum_{i != j} g_i.g_j = |sum_i g_i|^2 - sum_i |g_i|^2.
 
 import torch
 
+from ..utils.dtypes import real_dtype, resolve_device
+
 
 def default_move_begin(w, params, state, e, epos):
     """Metropolis move, first half: (grad at the current position, aux for
@@ -41,7 +43,11 @@ class MultiplyWF:
         self.wfs = tuple(wfs)
         self.nelec = wfs[0].nelec
 
-    def make_params(self, device="cpu", dtype=torch.float64):
+    def make_params(self, device=None, dtype=None):
+        """Parameters of every factor, on the GPU unless `device` says otherwise
+        (utils/dtypes.resolve_device); dtype defaults to real_dtype(device)."""
+        device = resolve_device(device)
+        dtype = dtype or real_dtype(device)
         return {f"wf{i}": w.make_params(device, dtype) for i, w in enumerate(self.wfs)}
 
     def _split(self, params):

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..ops.gto import GTOSpec, eval_gto
+from ..utils.dtypes import real_dtype, resolve_device
 
 
 class MolecularOrbitals:
@@ -22,7 +23,9 @@ class MolecularOrbitals:
         self._cb = np.asarray(mo_coeff[1])
         self.norb = (self._ca.shape[1], self._cb.shape[1])
 
-    def make_params(self, device="cpu", dtype=torch.float64):
+    def make_params(self, device=None, dtype=None):
+        device = resolve_device(device)
+        dtype = dtype or real_dtype(device)
         return {
             "mo_coeff_alpha": torch.as_tensor(self._ca, dtype=dtype, device=device),
             "mo_coeff_beta": torch.as_tensor(self._cb, dtype=dtype, device=device),

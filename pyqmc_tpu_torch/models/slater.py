@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import sherman_morrison_row, slogdet_inv
+from ..utils.dtypes import real_dtype, resolve_device
 from .orbitals import MolecularOrbitals
 
 
@@ -71,7 +72,9 @@ class Slater:
         nup, ndn = mf.mol.nelec
         return Slater(mf.mol, (mf.mo_coeff[0][:, :nup], mf.mo_coeff[1][:, :ndn]))
 
-    def make_params(self, device="cpu", dtype=torch.float64):
+    def make_params(self, device=None, dtype=None):
+        device = resolve_device(device)
+        dtype = dtype or real_dtype(device)
         p = {"det_coeff": torch.as_tensor(self._det_coeff0, dtype=dtype, device=device)}
         p.update(self.orbitals.make_params(device, dtype))
         return p

@@ -8,10 +8,11 @@ l = -1 is the local channel. The nonlocal part is integrated on a spherical
 quadrature around every atom that has nonlocal channels, with one random
 rotation per (walker, electron) shared by that electron's atoms.
 
-Rotations come in as tensors (nelec, nconf, 3, 3): the VMC block draws them
-from a torch.Generator (`rotations_from_quaternions`), and the parity tests
-pass the JAX package's own draws. The downselected and flat paths of the
-JAX package are not ported yet.
+Rotations come in as tensors (nelec, nconf, 3, 3): the VMC and DMC blocks
+draw them from a torch.Generator (`rotations_from_quaternions`), and the
+parity tests pass the JAX package's own draws. `tmove_quadrature` gives the
+DMC T-move sweep one electron's points, weights and ratios. The
+downselected and flat paths of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -251,6 +252,29 @@ class ECPAccumulator:
             auxs.append(aux.reshape(nconf, -1, 3))
             Ts.append((T * c["w"][None, None, :]).reshape(nconf, -1))
         return torch.cat(auxs, dim=1), torch.cat(Ts, dim=1)
+
+    @property
+    def active(self):
+        """True when nonlocal channels exist: the gate of the DMC T-moves
+        (a purely local ECP has no off-diagonal moves)."""
+        return len(self.nl_atoms) > 0
+
+    def _electron_quadrature(self, wf, params, state, positions, e, rot_e):
+        """Dense quadrature of electron e with the wavefunction ratio at
+        every point: (aux (c, nq, 3), T (c, nq), ratio (c, nq))."""
+        aux, T = self._quadrature_geometry(positions, e, rot_e)
+        ratio, _ = wf.testvalue(params, state, e, aux)
+        return aux, T, ratio
+
+    def tmove_quadrature(self, wf, params, state, positions, e, rot_e, tau):
+        """T-move quadrature of electron e (Casula's size-consistent form):
+        (aux (c, nq, 3), w (c, nq), r (c, nq)), the points, the signed
+        matrix-element weights w_q = -tau T_q and the wavefunction ratios
+        r_q, on the electron's rotations rot_e (c, 3, 3). Forward
+        amplitudes are max(0, w_q r_q); after a move to point m the
+        backward ones are max(0, w_q r_q / r_m)."""
+        aux, T, ratio = self._electron_quadrature(wf, params, state, positions, e, rot_e)
+        return aux, -tau * T, ratio
 
     def local(self, positions):
         """Local-channel energy summed over electrons and ECP atoms (nconf,)."""

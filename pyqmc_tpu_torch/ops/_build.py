@@ -1,15 +1,16 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in `pyqmc_tpu_torch/csrc/` are compiled at first use with nvcc
-into one shared library with a plain C interface, loaded with ctypes:
+Each source in `pyqmc_tpu_torch/csrc/*.cu` is compiled at first use with
+nvcc into a shared library of its own with a plain C interface, loaded with
+ctypes; the compilers of all missing libraries run side by side:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libpq_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<source>_<hash>.so csrc/<source>.cu
 
-The library lands in `build/pyqmc_tpu_torch/` beside the package and is
-named by a hash of every source and header, so an edit rebuilds. The build
-log, with ptxas' register and spill counts, is kept next to it. Nothing is
-compiled when a module is imported.
+The libraries land in `build/pyqmc_tpu_torch/` beside the package and are
+named by a hash of the source and every header, so an edit rebuilds. Each
+build log, with ptxas' register and spill counts, is kept next to its
+library. Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -33,14 +34,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# C entry points and their argument types (csrc/*.cu, extern "C")
-_SIGNATURES = {
-    # state_in, state_out, gauss, unif, nacc, tab, ntab, meta, nmeta, nconf,
+# C entry points (csrc/*.cu, extern "C"): their source and argument types
+_KERNELS = {
+    # state_in, state_out, gauss, unif, sums, tab, ntab, meta, nmeta, nconf,
     # nrows, nmax, tstep, drift_cutoff, stream
-    "pq_vmc_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _D, _P],
+    "pq_vmc_sweep": ("vmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _D, _P]),
+    # as pq_vmc_sweep without drift_cutoff
+    "pq_dmc_sweep": ("dmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _P]),
     # pos, invu, invd, rot, wvec, partial, out, tab, ntab, meta, nmeta,
     # nelec, nconf, stream
-    "pq_ecp_energy": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "pq_ecp_energy": ("ecp_energy.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
+    # state_in, state_out, rot, u_sel, u_acc, scratch, tab, ntab, meta,
+    # nmeta, nconf, nrows, nmax, tau, stream
+    "pq_tmove_sweep": ("tmove_sweep.cu",
+                       [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _P]),
 }
 
 
@@ -65,21 +72,22 @@ class LaunchCount:
         self.n = 0
 
 
-_lib = None
+_libs = None
 
 
 def sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
-def library_path():
-    """The library's path, named by a hash of the sources and the flags."""
+def library_path(cu):
+    """The library of source file `cu` (a name in csrc/), named by a hash of
+    the flags, the source and every header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in [os.path.join(CSRC, cu)] + [p for p in sources() if p.endswith(".cuh")]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libpq_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{cu[:-3]}_{h.hexdigest()[:16]}.so")
 
 
 def _nvcc():
@@ -89,39 +97,52 @@ def _nvcc():
     return nvcc
 
 
-def build() -> str:
-    """Compile the kernels if the library for the current sources is missing;
-    returns its path."""
-    so = library_path()
-    if os.path.exists(so):
-        return so
+def build() -> dict:
+    """Compile every kernel whose library for the current sources is
+    missing, all compilers started together; returns {source: library path}."""
+    paths = {cu: library_path(cu) for cu, _ in _KERNELS.values()}
+    missing = [cu for cu, so in paths.items() if not os.path.exists(so)]
+    if not missing:
+        return paths
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(so[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    running = []
+    for cu in missing:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, cu)]
+        running.append((cu, tmp, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                       stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cu, tmp, cmd, proc in running:
+        out, err = proc.communicate()
+        with open(paths[cu][:-3] + ".log", "w") as f:
+            f.write(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{cu}: nvcc failed ({proc.returncode}):\n{err[-4000:]}")
+        else:
+            os.replace(tmp, paths[cu])
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return paths
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
+    """{C entry name: its loaded library} (built on first call)."""
+    global _libs
+    if _libs is None:
+        paths = build()
+        loaded = {cu: ctypes.CDLL(so) for cu, so in paths.items()}
+        libs = {}
+        for name, (cu, argtypes) in _KERNELS.items():
             for suffix in ("_f32", "_f64"):
-                fn = getattr(lib, name + suffix)
+                fn = getattr(loaded[cu], name + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+            libs[name] = loaded[cu]
+        _libs = libs
+    return _libs
 
 
 def launch(name: str, dtype, *args):
@@ -129,6 +150,6 @@ def launch(name: str, dtype, *args):
     stream; raise KernelLaunchError if it reports a CUDA error."""
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}[dtype]
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name + suffix)(*args, stream)
+    err = getattr(library()[name], name + suffix)(*args, stream)
     if err != 0:
         raise KernelLaunchError(f"{name}{suffix}: CUDA error {err}")

@@ -1,17 +1,30 @@
-"""Kernel 1: one Metropolis sweep over all electrons of a Slater-Jastrow
-wavefunction, hand-written in CUDA (csrc/vmc_sweep.cu), with its plain
-PyTorch version beside it.
+"""One sweep of single-electron moves over all electrons of a Slater-Jastrow
+wavefunction, hand-written in CUDA, with its plain PyTorch version beside
+it. Counterpart of pyqmc_tpu/ops/move_pallas.py:build_fused_sweep, in both
+of its modes:
 
-Counterpart of pyqmc_tpu/ops/move_pallas.py:build_fused_sweep (mode="vmc").
-`build_fused_sweep` applies the same gate as the JAX builder (`_match_sj`)
-once, when the VMC block is built, and returns None outside it. The
-returned `FusedSweep` runs the plain version for CPU tensors and launches
-the kernel for CUDA tensors; it never falls back from one to the other.
+  mode="vmc"  the Metropolis sweep of method/vmc.py: drift capped in norm
+              (`limdrift`); kernel csrc/vmc_sweep.cu; returns
+              (positions, wrap, state, acc);
+  mode="dmc"  the drift-diffusion sweep of method/dmc.py: Umrigar drift
+              limiting (`limdrift_umrigar`), fixed-node rejection of moves
+              with ratio <= 0, and the per-walker sums of proposed and
+              accepted squared displacements that the effective time step
+              needs; kernel csrc/dmc_sweep.cu; returns
+              (positions, wrap, state, (acc, r2p, r2a)).
 
-The plain version, `sweep_plain`, is the sweep of method/vmc.py over the
-wavefunction's move protocol (default_move_begin / default_move_finish /
-updateinternals). Both consume the same pre-drawn gauss and unif, so in
-float64 they give the same chain to rounding.
+Both kernels are instances of one template (csrc/sweep_kernel.cuh), each
+with its own C symbol and launch counter. `build_fused_sweep` applies the
+same gate as the JAX function (`_match_sj`) once, when a block is built, and
+returns None outside it. The returned `FusedSweep` runs the plain version
+for CPU tensors and launches the kernel for CUDA tensors; it never falls
+back from one to the other.
+
+The plain version, `sweep_plain`, is the sweep of method/vmc.py (or
+method/dmc.py) over the wavefunction's move protocol (default_move_begin /
+default_move_finish / updateinternals). Kernel and plain version consume
+the same pre-drawn gauss and unif, so in float64 they give the same chain
+to rounding.
 """
 
 from __future__ import annotations
@@ -22,11 +35,13 @@ import torch
 from . import _build
 from .harmonics import cart2sph_matrix
 
-LAUNCHES = _build.LaunchCount()
+LAUNCHES = _build.LaunchCount()  # vmc-mode kernel
+DMC_LAUNCHES = _build.LaunchCount()  # dmc-mode kernel
+MODES = ("vmc", "dmc")
 
-# kernel caps (csrc/vmc_sweep.cu instantiates NMAX 4 and 16; csrc/
-# gto_device.cuh handles l <= 3; csrc/ecp_energy.cu MAXCHAN nonlocal
-# channels per atom); shared memory without an opt-in
+# kernel caps (csrc/sweep_kernel.cuh and csrc/tmove_sweep.cu instantiate
+# NMAX 4 and 16; csrc/gto_device.cuh handles l <= 3; csrc/ecp_device.cuh
+# MAXCHAN nonlocal channels per atom); shared memory without an opt-in
 MAX_ELECTRONS_PER_SPIN = 16
 MAX_L = 3
 MAX_CHANNELS = 8
@@ -43,35 +58,62 @@ def limdrift(g, cutoff=1.0):
     return torch.where(tot > cutoff, g * (cutoff / tot), g)
 
 
+def limdrift_umrigar(g, tau):
+    """Umrigar et al. drift limiting (method/dmc.py:32-39):
+    v -> v * (sqrt(1 + 2 v^2 tau) - 1) / (v^2 tau)."""
+    v2 = torch.sum(g * g, dim=-1, keepdim=True)
+    taueff = torch.clamp(v2 * tau, min=1e-12)
+    return g * ((torch.sqrt(1.0 + 2.0 * taueff) - 1.0) / taueff)
+
+
 def sweep_plain(wf, geometry, tstep, drift_cutoff, params, positions, wrap, state,
-                gauss_step, unif_step):
-    """Metropolis sweep over all electrons (method/vmc.py sweep).
+                gauss_step, unif_step, mode="vmc"):
+    """Sweep over all electrons: the Metropolis sweep of method/vmc.py
+    (mode="vmc") or the drift-diffusion sweep of method/dmc.py:153-204
+    (mode="dmc").
 
     gauss_step (nelec, nconf, 3), pre-scaled by sqrt(tstep); unif_step
     (nelec, nconf). Returns (positions, wrap, state, acc) with acc the sum
-    over electrons of the mean acceptance.
+    over electrons of the mean acceptance; in dmc mode the last entry is
+    (acc, r2p, r2a), r2p and r2a (nconf,) being each walker's summed
+    squared displacement over every proposal and over the accepted ones.
     """
     from ..models.multiply import default_move_begin, default_move_finish
 
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    dmc = mode == "dmc"
     positions = positions.clone()
     wrap = wrap.clone()
     acc = torch.zeros((), dtype=positions.dtype, device=positions.device)
+    r2p = torch.zeros(positions.shape[0], dtype=positions.dtype, device=positions.device)
+    r2a = torch.zeros_like(r2p)
     for e in range(positions.shape[1]):
         epos = positions[:, e, :]
         grad_old, aux = default_move_begin(wf, params, state, e, epos)
-        drift_old = limdrift(grad_old, drift_cutoff)
+        drift_old = limdrift_umrigar(grad_old, tstep) if dmc else limdrift(grad_old, drift_cutoff)
         gauss = gauss_step[e]
         newpos, wrapdelta = geometry.enforce(epos + gauss + tstep * drift_old)
         grad_new, ratio, saved = default_move_finish(wf, params, state, e, newpos, aux)
-        drift_new = limdrift(grad_new, drift_cutoff)
+        drift_new = limdrift_umrigar(grad_new, tstep) if dmc else limdrift(grad_new, drift_cutoff)
         forward = torch.sum(gauss * gauss, dim=-1)
         backward = torch.sum((gauss + tstep * (drift_old + drift_new)) ** 2, dim=-1)
         t_prob = torch.exp((forward - backward) / (2.0 * tstep))
-        accept = torch.abs(ratio) ** 2 * t_prob > unif_step[e]
+        accept_prob = torch.abs(ratio) ** 2 * t_prob
+        if dmc:
+            # fixed node: a move across the node is rejected
+            accept_prob = torch.where(ratio <= 0, torch.zeros_like(accept_prob), accept_prob)
+        accept = accept_prob > unif_step[e]
         state = wf.updateinternals(params, state, e, newpos, accept, saved)
         positions[:, e, :] = torch.where(accept[:, None], newpos, epos)
         wrap[:, e, :] = torch.where(accept[:, None], wrap[:, e, :] + wrapdelta, wrap[:, e, :])
         acc = acc + torch.mean(accept.to(positions.dtype))
+        if dmc:
+            r2 = torch.sum((gauss + tstep * drift_old) ** 2, dim=-1)
+            r2p = r2p + r2
+            r2a = r2a + torch.where(accept, r2, torch.zeros_like(r2))
+    if dmc:
+        return positions, wrap, state, (acc, r2p, r2a)
     return positions, wrap, state, acc
 
 
@@ -82,8 +124,10 @@ def _match_sj(wf, geometry):
     Returns (slater, jastrow, sl_idx, j_idx) or None."""
     from ..models.jastrow import JastrowSpin
     from ..models.multiply import MultiplyWF
+    from ..models.orbitals import MolecularOrbitals
     from ..models.slater import Slater
 
+    # the checks of move_pallas._match_sj, in its order
     if getattr(geometry, "lattice", None) is not None:
         return None
     factors = list(wf.wfs) if isinstance(wf, MultiplyWF) else [wf]
@@ -95,13 +139,32 @@ def _match_sj(wf, geometry):
             jastrow, j_idx = f, i
         else:
             return None
-    if slater is None or slater.nup == 0 or slater.ndn == 0:
+    if slater is None:
         return None
-    if slater.orbitals.norb != (slater.nup, slater.ndn):
+    if not isinstance(slater.orbitals, MolecularOrbitals):
         return None
-    if jastrow is not None and any(b.kind not in ("polypade", "cutoffcusp")
-                                   for b in jastrow.a_basis + jastrow.b_basis):
+    exp = slater.expansion
+    nup, ndn = slater.nup, slater.ndn
+    if nup == 0 or ndn == 0:
         return None
+    # One determinant whose occupation is the first n orbitals. The port's
+    # Slater builds only DeterminantExpansion.single today, so these two
+    # checks start to decide once multi-determinant expansions are ported.
+    if len(exp.map_up) != 1 or exp.occ_up.shape[0] != 1 or exp.occ_dn.shape[0] != 1:
+        return None
+    if slater.orbitals.norb != (nup, ndn):
+        return None
+    if not (np.array_equal(exp.occ_up[0], np.arange(nup))
+            and np.array_equal(exp.occ_dn[0], np.arange(ndn))):
+        return None
+    if jastrow is not None:
+        if any(b.kind not in ("polypade", "cutoffcusp")
+               for b in jastrow.a_basis + jastrow.b_basis):
+            return None
+        # the port's JastrowSpin is open-boundary only and carries no
+        # geometry; a periodic one will, and stays outside the gate
+        if getattr(getattr(jastrow, "geometry", None), "lattice", None) is not None:
+            return None
     return slater, jastrow, sl_idx, j_idx
 
 
@@ -260,15 +323,73 @@ def _factor(wf, idx, params, state):
     return params, state
 
 
+class WalkerState:
+    """The kernels' walker-minor state: row r of walker w at [r, w]. Rows:
+    pos (3 nelec) | inv_up | inv_dn | phase_up | logdet_up | phase_dn |
+    logdet_dn | mog_up | mog_dn | u (csrc/sweep_kernel.cuh)."""
+
+    def __init__(self, wf, slater, jastrow, sl_idx, j_idx):
+        self.wf, self.slater, self.jastrow = wf, slater, jastrow
+        self.sl_idx, self.j_idx = sl_idx, j_idx
+
+    def split(self, params, state):
+        """(slater params, slater state, jastrow params or None, jastrow state or None)."""
+        sl_params, sl = _factor(self.wf, self.sl_idx, params, state)
+        if self.jastrow is None:
+            return sl_params, sl, None, None
+        j_params, js = _factor(self.wf, self.j_idx, params, state)
+        return sl_params, sl, j_params, js
+
+    def pack(self, positions, sl, js):
+        """(rows, nconf) contiguous tensor and the row count of every leaf."""
+        nconf, dtype = positions.shape[0], positions.dtype
+        u = js.u if js is not None else torch.zeros(nconf, dtype=dtype, device=positions.device)
+        cols = [positions, sl.inv_up, sl.inv_dn, sl.phase_up, sl.logdet_up, sl.phase_dn,
+                sl.logdet_dn, sl.mog_up, sl.mog_dn, u]
+        sizes = [c[0].numel() for c in cols]
+        packed = torch.cat([c.reshape(nconf, -1).to(dtype) for c in cols], dim=1).t().contiguous()
+        return packed, sizes
+
+    def unpack(self, packed, sizes, state):
+        """(positions, new state) from the kernel's output rows."""
+        from ..models.jastrow import JastrowState
+        from ..models.multiply import MultiplyWF
+        from ..models.slater import SlaterState
+
+        nconf = packed.shape[1]
+        nup, ndn = self.slater.nup, self.slater.ndn
+        out = torch.split(packed.t(), sizes, dim=1)
+        pos_o = out[0].reshape(nconf, nup + ndn, 3)
+        new_sl = SlaterState(
+            inv_up=out[1].reshape(nconf, 1, nup, nup), inv_dn=out[2].reshape(nconf, 1, ndn, ndn),
+            phase_up=out[3].reshape(nconf, 1), logdet_up=out[4].reshape(nconf, 1),
+            phase_dn=out[5].reshape(nconf, 1), logdet_dn=out[6].reshape(nconf, 1),
+            mog_up=out[7].reshape(nconf, nup, 4, nup), mog_dn=out[8].reshape(nconf, ndn, 4, ndn),
+        )
+        if not isinstance(self.wf, MultiplyWF):
+            return pos_o, new_sl
+        new_state = list(state)
+        new_state[self.sl_idx] = new_sl
+        if self.jastrow is not None:
+            new_state[self.j_idx] = JastrowState(positions=pos_o, u=out[9].reshape(nconf))
+        return pos_o, tuple(new_state)
+
+    def nmax(self):
+        """The kernels' template width: electrons of one spin, 4 or 16."""
+        return 4 if max(self.slater.nup, self.slater.ndn) <= 4 else MAX_ELECTRONS_PER_SPIN
+
+
 class FusedSweep:
     """sweep(params, positions, wrap, state, gauss_step, unif_step)
-    -> (positions, wrap, state, acc), the contract of `sweep_plain`."""
+    -> (positions, wrap, state, acc), or (..., (acc, r2p, r2a)) in dmc
+    mode: the contract of `sweep_plain`."""
 
-    def __init__(self, wf, geometry, tstep, drift_cutoff, match):
-        self.wf, self.geometry = wf, geometry
+    def __init__(self, wf, geometry, tstep, drift_cutoff, match, mode="vmc"):
+        self.wf, self.geometry, self.mode = wf, geometry, mode
         self.tstep, self.drift_cutoff = float(tstep), float(drift_cutoff)
         self.slater, self.jastrow, self.sl_idx, self.j_idx = match
         self.tables = SJTables(self.slater, self.jastrow)
+        self.walkers = WalkerState(wf, *match)
 
     def __call__(self, params, positions, wrap, state, gauss_step, unif_step):
         if positions.device.type == "cpu":
@@ -279,66 +400,49 @@ class FusedSweep:
 
     def plain(self, params, positions, wrap, state, gauss_step, unif_step):
         return sweep_plain(self.wf, self.geometry, self.tstep, self.drift_cutoff, params,
-                           positions, wrap, state, gauss_step, unif_step)
+                           positions, wrap, state, gauss_step, unif_step, mode=self.mode)
 
     def kernel(self, params, positions, wrap, state, gauss_step, unif_step):
-        from ..models.jastrow import JastrowState
-        from ..models.multiply import MultiplyWF
-        from ..models.slater import SlaterState
-
         nconf, nelec = positions.shape[:2]
-        nup, ndn = self.slater.nup, self.slater.ndn
         dtype = positions.dtype
         self.tables.check(dtype)
         if gauss_step.shape != (nelec, nconf, 3) or unif_step.shape != (nelec, nconf):
             raise ValueError("gauss_step must be (nelec, nconf, 3) and unif_step (nelec, nconf), "
                              f"got {tuple(gauss_step.shape)} and {tuple(unif_step.shape)}")
-        sl_params, sl = _factor(self.wf, self.sl_idx, params, state)
-        if self.jastrow is not None:
-            j_params, js = _factor(self.wf, self.j_idx, params, state)
-            u = js.u
-        else:
-            j_params, u = None, torch.zeros(nconf, dtype=dtype, device=positions.device)
-        cols = [positions, sl.inv_up, sl.inv_dn, sl.phase_up, sl.logdet_up, sl.phase_dn,
-                sl.logdet_dn, sl.mog_up, sl.mog_dn, u]
-        sizes = [c[0].numel() for c in cols]
-        state_in = torch.cat([c.reshape(nconf, -1).to(dtype) for c in cols], dim=1).t().contiguous()
+        sl_params, sl, j_params, js = self.walkers.split(params, state)
+        state_in, sizes = self.walkers.pack(positions, sl, js)
         gauss_t = gauss_step.permute(0, 2, 1).reshape(3 * nelec, nconf).contiguous()
         unif_t = unif_step.contiguous()
         tab, meta = self.tables.pack(sl_params, j_params, positions.device, dtype)
         state_out = torch.empty_like(state_in)
-        nacc = torch.empty(nconf, dtype=dtype, device=positions.device)
-        check_cuda(dtype, state_in, gauss_t, unif_t, tab, meta, state_out, nacc)
-        nmax = 4 if max(nup, ndn) <= 4 else MAX_ELECTRONS_PER_SPIN
-        _build.launch("pq_vmc_sweep", dtype, state_in.data_ptr(), state_out.data_ptr(),
-                      gauss_t.data_ptr(), unif_t.data_ptr(), nacc.data_ptr(), tab.data_ptr(),
-                      tab.numel(), meta.data_ptr(), meta.numel(), nconf, state_in.shape[0],
-                      nmax, self.tstep, self.drift_cutoff)
-        LAUNCHES.add()
-        out = torch.split(state_out.t(), sizes, dim=1)
-        pos_o = out[0].reshape(nconf, nelec, 3)
-        new_sl = SlaterState(
-            inv_up=out[1].reshape(nconf, 1, nup, nup), inv_dn=out[2].reshape(nconf, 1, ndn, ndn),
-            phase_up=out[3].reshape(nconf, 1), logdet_up=out[4].reshape(nconf, 1),
-            phase_dn=out[5].reshape(nconf, 1), logdet_dn=out[6].reshape(nconf, 1),
-            mog_up=out[7].reshape(nconf, nup, 4, nup), mog_dn=out[8].reshape(nconf, ndn, 4, ndn),
-        )
-        if isinstance(self.wf, MultiplyWF):
-            new_state = list(state)
-            new_state[self.sl_idx] = new_sl
-            if self.jastrow is not None:
-                new_state[self.j_idx] = JastrowState(positions=pos_o, u=out[9].reshape(nconf))
-            new_state = tuple(new_state)
+        dmc = self.mode == "dmc"
+        # per-walker outputs: accepted moves, and in dmc mode r2p and r2a
+        sums = torch.empty((3 if dmc else 1, nconf), dtype=dtype, device=positions.device)
+        check_cuda(dtype, state_in, gauss_t, unif_t, tab, meta, state_out, sums)
+        args = (state_in.data_ptr(), state_out.data_ptr(), gauss_t.data_ptr(), unif_t.data_ptr(),
+                sums.data_ptr(), tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(), nconf,
+                state_in.shape[0], self.walkers.nmax(), self.tstep)
+        if dmc:
+            _build.launch("pq_dmc_sweep", dtype, *args)
+            DMC_LAUNCHES.add()
         else:
-            new_state = new_sl
+            _build.launch("pq_vmc_sweep", dtype, *args, self.drift_cutoff)
+            LAUNCHES.add()
+        pos_o, new_state = self.walkers.unpack(state_out, sizes, state)
         # sum over electrons of the mean acceptance = walker mean of the count
-        return pos_o, wrap, new_state, torch.mean(nacc)
+        acc = torch.mean(sums[0])
+        if dmc:
+            return pos_o, wrap, new_state, (acc, sums[1], sums[2])
+        return pos_o, wrap, new_state, acc
 
 
-def build_fused_sweep(wf, geometry, tstep, drift_cutoff=1.0):
+def build_fused_sweep(wf, geometry, tstep, drift_cutoff=1.0, mode="vmc"):
     """FusedSweep for a wavefunction inside the gate, else None (the caller
-    then uses sweep_plain)."""
+    then uses sweep_plain). mode="dmc" applies Umrigar drift limiting and
+    the fixed-node rejection and returns (acc, r2p, r2a) last."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     m = _match_sj(wf, geometry)
     if m is None:
         return None
-    return FusedSweep(wf, geometry, tstep, drift_cutoff, m)
+    return FusedSweep(wf, geometry, tstep, drift_cutoff, m, mode=mode)

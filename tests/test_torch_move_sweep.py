@@ -34,7 +34,8 @@ from pyqmc_tpu_torch.ops.gto import eval_gto
 from pyqmc_tpu_torch.ops.harmonics import cart_components
 from pyqmc_tpu_torch.ops.move_sweep import SJTables, build_fused_sweep, sweep_plain
 
-from .torch_parity import F64, assert_trees_close, h2o_pair, h2o_params, h2o_wf_objects, walkers
+from .torch_parity import (F64, assert_trees_close, bc_pair, h2o_pair, h2o_params, h2o_wf_objects,
+                           walkers)
 
 TSTEP = 0.5
 
@@ -98,13 +99,57 @@ def test_sweep_matches_jax_xla_sweep(seed):
 
 def test_gate():
     """Outside the JAX gate the builder returns None (the block then runs
-    sweep_plain): a Jastrow alone, or a Slater with extra orbitals."""
+    sweep_plain), in both modes: a Jastrow alone, a Slater with extra
+    orbitals, and each further check of move_pallas._match_sj that the
+    port's classes can express."""
+    import copy
+    import types
+
+    from pyqmc_tpu_torch.models.slater import DeterminantExpansion
+
     _, tmf = h2o_pair()[1]
     mol = tmf.mol
     assert build_fused_sweep(JastrowSpin(mol), Geometry(), TSTEP) is None
     wide = Slater(mol, (tmf.mo_coeff[0][:, :6], tmf.mo_coeff[1][:, :4]))
     assert build_fused_sweep(MultiplyWF(wide, JastrowSpin(mol)), Geometry(), TSTEP) is None
-    assert build_fused_sweep(Slater.from_mean_field(tmf), Geometry(), TSTEP) is not None
+    good = Slater.from_mean_field(tmf)
+    for mode in move_sweep.MODES:
+        assert build_fused_sweep(good, Geometry(), TSTEP, mode=mode) is not None
+        assert build_fused_sweep(MultiplyWF(good, JastrowSpin(mol)), Geometry(), TSTEP,
+                                 mode=mode).mode == mode
+    match = move_sweep._match_sj
+
+    def variant(**attrs):
+        sl = copy.copy(good)
+        for k, v in attrs.items():
+            setattr(sl, k, v)
+        return sl
+
+    # a periodic geometry
+    assert match(good, types.SimpleNamespace(lattice=np.eye(3))) is None
+    # a third factor, or two of a kind
+    assert match(MultiplyWF(good, JastrowSpin(mol), JastrowSpin(mol)), Geometry()) is None
+    # orbitals that are not MolecularOrbitals
+    assert match(variant(orbitals=types.SimpleNamespace(norb=(4, 4))), Geometry()) is None
+    # an empty spin channel
+    assert match(variant(ndn=0), Geometry()) is None
+    # two determinants
+    two = DeterminantExpansion(occ_up=np.array([[0, 1, 2, 3], [0, 1, 2, 4]]),
+                               occ_dn=np.arange(4)[None, :], map_up=np.array([0, 1]),
+                               map_dn=np.array([0, 0]))
+    assert match(variant(expansion=two), Geometry()) is None
+    # one determinant that does not occupy the first n orbitals
+    excited = DeterminantExpansion(occ_up=np.array([[0, 1, 2, 4]]), occ_dn=np.arange(4)[None, :],
+                                   map_up=np.zeros(1, np.int64), map_dn=np.zeros(1, np.int64))
+    assert match(variant(expansion=excited), Geometry()) is None
+    # a Jastrow basis the kernels do not know, and a periodic Jastrow
+    odd = JastrowSpin(mol)
+    odd.b_basis = tuple(odd.b_basis[:-1]) + (types.SimpleNamespace(kind="gaussian"),)
+    assert match(MultiplyWF(good, odd), Geometry()) is None
+    periodic = JastrowSpin(mol)
+    periodic.geometry = types.SimpleNamespace(lattice=np.eye(3))
+    assert match(MultiplyWF(good, periodic), Geometry()) is None
+    assert match(MultiplyWF(good, JastrowSpin(mol)), Geometry()) is not None
 
 
 def _decode_ao(tab, meta, x):
@@ -165,7 +210,7 @@ def test_sj_tables_decode_quadrature():
     _, twf = h2o_wf_objects()
     acc = ECPAccumulator(tmol)
     tables = SJTables(*twf.wfs, ecp_acc=acc)
-    tab_t, meta_t = tables.pack(*twf.make_params().values(), "cpu", F64)
+    tab_t, meta_t = tables.pack(*twf.make_params(device="cpu").values(), "cpu", F64)
     tab, meta = tab_t.numpy(), meta_t.numpy()
     assert meta[move_sweep.M_NQATOMS] == 1 and tables.nq_total == 6
     npts, fpts, nchan, ichans, fcoord = meta[meta[move_sweep.M_I_QATOMS]:][:5]
@@ -179,6 +224,35 @@ def test_sj_tables_decode_quadrature():
     np.testing.assert_array_equal(tab[fterms: fterms + 3 * nterm].reshape(nterm, 3),
                                   np.stack([ch.coeffs, ch.exps, ch.powers], axis=1))
     assert tab[meta[move_sweep.M_F_RMAX]] == acc.rmax
+
+
+def test_sj_tables_decode_quadrature_heterogeneous():
+    """SJTables emits the quadrature atoms as the JAX kernel does: grids in
+    ascending size (C, 6 points, before B, 12 points), each with its own
+    channels and coordinates."""
+    _, _, _, tmol, twf, tp = bc_pair()
+    from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
+
+    acc = ECPAccumulator(tmol)
+    tables = SJTables(*twf.wfs, ecp_acc=acc)
+    tab_t, meta_t = tables.pack(tp["wf0"], tp["wf1"], "cpu", F64)
+    tab, meta = tab_t.numpy(), meta_t.numpy()
+    assert meta[move_sweep.M_NQATOMS] == 2 and tables.nq_total == 18
+    q0 = meta[move_sweep.M_I_QATOMS]
+    for qi, atom in enumerate([1, 0]):  # C, then B
+        npts, fpts, nchan, ichans, fcoord = meta[q0 + 5 * qi: q0 + 5 * qi + 5]
+        aecp = acc.nl_atoms[atom]
+        assert npts == acc.atom_naip[atom] and nchan == len(aecp.nonlocal_channels)
+        np.testing.assert_array_equal(tab[fcoord: fcoord + 3], tmol.atom_coords[atom])
+        pts, w = acc.atom_quad[atom]
+        np.testing.assert_array_equal(tab[fpts: fpts + 4 * npts].reshape(npts, 4),
+                                      np.concatenate([pts, w[:, None]], axis=1))
+        for ci, ch in enumerate(aecp.nonlocal_channels):
+            l, nterm, fterms = meta[ichans + 3 * ci: ichans + 3 * ci + 3]
+            assert (l, nterm) == (ch.l, len(ch.coeffs))
+            np.testing.assert_array_equal(tab[fterms: fterms + 3 * nterm].reshape(nterm, 3),
+                                          np.stack([ch.coeffs, ch.exps, ch.powers], axis=1))
+    tables.check(torch.float32)
 
 
 def test_sweep_plain_keeps_wrap_and_state_inputs():

@@ -68,6 +68,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pyqmc_tpu.')))\n"
         "assert not bad, bad\n"
+        "for m in ('method.dmc', 'method.extrapolate', 'reblock', 'ops.tmove_sweep'):\n"
+        "    assert 'pyqmc_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('pyqmc_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -80,7 +82,7 @@ def test_port_imports_no_jax():
 def test_params_round_trip():
     jwf, twf = h2o_wf_objects()
     jp = jax.device_get(jwf.make_params())
-    tp = params_from_numpy(jp, dtype=torch.float64)
+    tp = params_from_numpy(jp, device="cpu", dtype=torch.float64)
     assert set(tp) == {"wf0", "wf1"}
     assert set(tp["wf0"]) == {"det_coeff", "mo_coeff_alpha", "mo_coeff_beta"}
     assert tp["wf1"]["acoeff"].shape == (3, 4, 2) and tp["wf1"]["bcoeff"].shape == (4, 3)
@@ -89,7 +91,7 @@ def test_params_round_trip():
         for kk in jp[k]:
             np.testing.assert_array_equal(back[k][kk], np.asarray(jp[k][kk]))
     # the port's own defaults equal the JAX package's
-    own = params_to_numpy(twf.make_params())
+    own = params_to_numpy(twf.make_params(device="cpu"))
     for k in jp:
         for kk in jp[k]:
             np.testing.assert_array_equal(own[k][kk], np.asarray(jp[k][kk]))
@@ -103,7 +105,8 @@ def test_states_from_jax():
     jp = jwf.make_params()
     pos = np.random.default_rng(81).normal(scale=1.5, size=(4, 8, 3))
     js = jax.device_get(jax.jit(jwf.recompute)(jp, jnp.asarray(pos)))
-    carried = (slater_state_from_numpy(js[0]), jastrow_state_from_numpy(js[1]))
-    own = twf.recompute(twf.make_params(), torch.as_tensor(pos, dtype=torch.float64))
+    carried = (slater_state_from_numpy(js[0], device="cpu"),
+               jastrow_state_from_numpy(js[1], device="cpu"))
+    own = twf.recompute(twf.make_params(device="cpu"), torch.as_tensor(pos, dtype=torch.float64))
     for a, b in zip(carried[0] + carried[1], own[0] + own[1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-10, rtol=1e-10)

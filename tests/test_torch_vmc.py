@@ -67,7 +67,7 @@ def test_vmc_driver_on_cpu():
     """vmc() through the entry point, on the CPU with the plain versions:
     finite block averages with every energy component, and a chain that
     moves."""
-    mol, wf, params, configs, acc = h2o_setup(nconf=6)
+    mol, wf, params, configs, acc = h2o_setup(nconf=6, device="cpu")
     data, final = vmc(wf, params, configs, nblocks=2, nsteps_per_block=2, accumulators=acc,
                       generator=torch.Generator().manual_seed(3))
     assert [d["block"] for d in data] == [0, 1]

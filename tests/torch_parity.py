@@ -29,6 +29,10 @@ from pyqmc_tpu_torch.models.multiply import MultiplyWF as TMultiply
 from pyqmc_tpu_torch.models.slater import Slater as TSlater
 from pyqmc_tpu_torch.system.io import load_npz
 
+# The parity tests run tiny tensors beside several other test processes:
+# one thread each keeps them from crowding the machine's cores.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H2O_HDF5 = os.path.join(ROOT, "benchmarks", "h2o_ccecp-ccpvdz_ccecp_scf.hdf5")
 F64 = torch.float64
@@ -83,7 +87,7 @@ def h2o_params(rng, random_jastrow=True):
             rng.normal(scale=0.1, size=jparams["wf1"]["acoeff"].shape))
         jparams["wf1"]["bcoeff"] = jparams["wf1"]["bcoeff"] + jnp.asarray(
             rng.normal(scale=0.05, size=jparams["wf1"]["bcoeff"].shape))
-    return jparams, params_from_numpy(jax.device_get(jparams), dtype=F64)
+    return jparams, params_from_numpy(jax.device_get(jparams), device="cpu", dtype=F64)
 
 
 def walkers(rng, nconf, nelec=8, scale=1.5):
@@ -96,3 +100,44 @@ def jax_rotations(key, nelec, nconf):
     draws from `key` (one per electron from fold_in(key, 1000 + e))."""
     return np.stack([np.asarray(random_rotations(jax.random.fold_in(key, 1000 + e), (nconf,)))
                      for e in range(nelec)])
+
+
+def port_molecule(jmol):
+    """The port's Molecule of a JAX-side molecule: its basis and ECP carried
+    over as plain Python data (shells as the JAX shell table holds them)."""
+    from pyqmc_tpu_torch.system.mole import Molecule, Shell
+
+    basis = {sym: [Shell(l=int(sh.l), exps=tuple(float(x) for x in sh.exps),
+                         coeffs=tuple(float(c) for c in sh.coeffs)) for sh in jmol.basis[sym]]
+             for sym in set(jmol.atom_symbols)}
+    return Molecule(list(jmol.atom_symbols), np.asarray(jmol.atom_coords), basis,
+                    ecp=jmol.ecp, charge=jmol.charge, spin=jmol.spin)
+
+
+@functools.lru_cache(maxsize=None)
+def bc_pair():
+    """The heterogeneous-naip ECP system of tests/unit/test_move_pallas.py:
+    B (tpu1, two nonlocal channels, 12 points) + C (ccECP, one channel, 6
+    points), so the quadrature's group order (by grid size: C first)
+    differs from the atom order (B first). Slater-Jastrow with random MO
+    coefficients and e-ion Jastrow coefficients, identical on both sides:
+    (jax mol, jax wf, jax params, port mol, port wf, port params)."""
+    from pyqmc_tpu.models.slater import DeterminantExpansion
+    from pyqmc_tpu.system.basis import get_basis, get_ecp
+    from pyqmc_tpu.system.mole import Molecule as JMolecule
+
+    rng = np.random.default_rng(5)
+    bas = {**get_basis("tpu1dz", ["B"]), **get_basis("ccecpccpvdz", ["C"])}
+    ecp = {**get_ecp("tpu1", ["B"]), **get_ecp("ccecp", ["C"])}
+    jmol = JMolecule([("B", (0, 0, 0)), ("C", (0, 0, 2.8))], basis=bas, ecp=ecp, spin=1)
+    nup, ndn = jmol.nelec
+    ca, cb = rng.normal(size=(jmol.nao, nup)), rng.normal(size=(jmol.nao, ndn))
+    jwf = JMultiply(JSlater(jmol, None, DeterminantExpansion.single(nup, ndn), (ca, cb)),
+                    JJastrow(jmol))
+    jparams = jwf.make_params()
+    jparams["wf1"]["acoeff"] = jnp.asarray(
+        rng.normal(scale=0.1, size=jparams["wf1"]["acoeff"].shape))
+    tmol = port_molecule(jmol)
+    twf = TMultiply(TSlater(tmol, (ca, cb)), TJastrow(tmol))
+    tparams = params_from_numpy(jax.device_get(jparams), device="cpu", dtype=F64)
+    return jmol, jwf, jparams, tmol, twf, tparams
