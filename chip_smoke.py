@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (pyqmc_tpu_torch, never jax) on ccECP/cc-pVDZ
-H2O Slater-Jastrow, 2048 walkers, float32, with the energy accumulator and
-its nonlocal ECP quadrature every step: VMC in 50-step blocks, and
-fixed-node DMC with T-moves (`rundmc`) in 10-step blocks.
+Drives the port's three paths (pyqmc_tpu_torch, never jax), float32: on
+ccECP/cc-pVDZ H2O Slater-Jastrow, 2048 walkers, with the energy
+accumulator and its nonlocal ECP quadrature every step, VMC in 50-step
+blocks and fixed-node DMC with T-moves (`rundmc`) in 10-step blocks; and
+periodic VMC on the 2x2x2 diamond-C supercell (`diamond_setup`, 500
+walkers, 64 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) in
+10-step blocks.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -64,6 +67,33 @@ fixed-node DMC with T-moves (`rundmc`) in 10-step blocks.
   7. one 10-step DMC block with the kernels and one with the plain
      versions, timed in turns, then one kernel-path DMC block under
      torch.profiler as in phase 5
+  8. the periodic kernels against their plain versions at the diamond
+     supercell's shapes, float64 and float32, with the tolerances of phase
+     2: K7 (the periodic sweep; wrap counts too; the diamond's 32 x 32
+     orbital matrices reach path condition numbers of 1e6, so in float32
+     the leaves other than the inverses are held to the plain version in
+     float64 from the same inputs: over the walkers whose decisions agree
+     in all three runs, each leaf's largest error of the kernel against it
+     must be at most 3 times the plain float32 version's plus 1e-5, and
+     the walkers where the kernel is farther than that are counted; the
+     inverses keep phase 2's 1e-4 x max(1, cond/100) gate), K6 (AO
+     values, gradients, laplacians at one kinetic-energy chunk, 16,000
+     points) and K3 (MOs at
+     one ECP chunk, 252,000 points; and at H2O's 23 AOs on its ECP
+     points); K3 and K6 to 1e-9 (f64) and 1e-4 (f32) of their entries plus
+     the largest entry's magnitude (sums of 489 terms). Times and bounds as
+     in phase 2.
+  9. the periodic VMC path through the entry points: diamond_setup(500) on
+     the default device + vmc(), 8 blocks x 10 steps; launch counts per
+     block exactly 10 K7, 20 K6 and 40 K3 (1, 2 and 4 per step); the energy
+     per primitive cell of the last 4 blocks within max(5 x combined SEM,
+     0.02 Ha) of the JAX package's CPU reference (tools/
+     diamond_jax_reference.py) and the acceptance within 0.05 of its
+     acceptance
+  10. one periodic 10-step block with the kernels and one with the plain
+     versions (make_vmc_block(fused=False): the plain sweep, the orbitals
+     without K3 and K6), timed in turns,
+     then one kernel block under torch.profiler as in phase 5
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -85,6 +115,14 @@ DMC_NSTEPS = 10
 DMC_NBLOCKS = 6
 DMC_WARMUP = 5
 TMOVE_BIG_TAU = 0.5
+DIAMOND_NCONF = 500
+DIAMOND_NSTEPS = 10
+DIAMOND_NBLOCKS = 8
+DIAMOND_NLAST = 4  # blocks averaged for the energy check
+DIAMOND_NCELL = 8  # primitive cells in the 2x2x2 supercell
+# tools/diamond_jax_reference.py on the CPU, float64 (see PERF.md)
+DIAMOND_REF = {"e_cell": -10.182775221948061, "sem": 0.007186578622671951,
+               "acceptance": 0.6213392469618056}  # 128 walkers, 36 x 10 steps after 4 blocks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -117,6 +155,14 @@ def leaves(state):
     if isinstance(state, torch.Tensor):
         return [state]
     return [t for s in state for t in leaves(s)]
+
+
+def cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    return tree.to(dtype)
 
 
 def randomize_jastrow(params, seed):
@@ -231,10 +277,33 @@ def bound_ms(nbytes, ops):
 
 # --- phase 2: kernels against their plain versions ------------------------------
 
-def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=()):
+def path_conds(wf, params, pos, pos_new):
+    """Per walker and spin, the largest condition number of the orbital
+    matrices along a sweep from pos to pos_new (after move k the first k
+    electrons sit at their new positions), from float64 recomputes; and the
+    exact (float64) state at pos_new."""
+    p64 = cast_tree(params, torch.float64)
+    conds = {"up": [], "dn": []}
+    for k in range(pos.shape[1] + 1):
+        sl_mid = wf.recompute(p64, torch.cat([pos_new[:, :k], pos[:, k:]], dim=1).double())[0]
+        conds["up"].append(torch.linalg.cond(sl_mid.mog_up[:, :, 0, :]))
+        conds["dn"].append(torch.linalg.cond(sl_mid.mog_dn[:, :, 0, :]))
+    return {k: torch.amax(torch.stack(v), dim=0).reshape(-1) for k, v in conds.items()}, sl_mid
+
+
+def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=(), exact=None):
     """One sweep's kernel output against its plain version's: (positions,
     state) pairs, plus `extras`, per-walker tensors as (name, kernel,
-    plain). Returns the measured numbers; raises on disagreement."""
+    plain). Returns the measured numbers; raises on disagreement.
+
+    exact: the plain version's float64 output from the same inputs, or
+    None. Given it, the float32 leaves other than the inverses are held to
+    it instead of to 1e-4 of the plain float32 version: over the walkers
+    whose decisions agree in all three runs, each leaf's largest error
+    (over 1 + |exact|) of the kernel must be at most 3 times the plain
+    version's plus 1e-5; the walkers where the kernel's own error exceeds
+    that bound are counted. The inverses are held to 1e-4 x max(1,
+    cond/100) either way."""
     (pk, sk), (pp, sp) = out_k, out_p
     moved_k = torch.any(pk != pos, dim=-1)
     moved_p = torch.any(pp != pos, dim=-1)
@@ -257,33 +326,59 @@ def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=()):
         return res
     check(ndiff <= 0.01 * pos.shape[0], f"f32 {label}: {ndiff} walkers with differing accepts")
     agree = ~differ
+    # The inverses are updated move by move (Sherman-Morrison), so their
+    # float32 error follows the largest condition number of the orbital
+    # matrices along the sweep. Those matrices, and the exact final
+    # inverses, come from float64 recomputes.
+    conds, sl_mid = path_conds(wf, params, pos, pp)
+    cond_w = torch.maximum(conds["up"], conds["dn"])
     sl_k, j_k = sk
     sl_p, j_p = sp
+    names = ["positions", "phase_up", "phase_dn", "logdet_up", "logdet_dn", "u", "mog_up",
+             "mog_dn"] + [e[0] for e in extras]
     pairs = [(pk, pp), (sl_k.phase_up, sl_p.phase_up), (sl_k.phase_dn, sl_p.phase_dn),
              (sl_k.logdet_up, sl_p.logdet_up), (sl_k.logdet_dn, sl_p.logdet_dn), (j_k.u, j_p.u),
              (sl_k.mog_up, sl_p.mog_up), (sl_k.mog_dn, sl_p.mog_dn)]
     pairs += [(e[1], e[2]) for e in extras]
+    if exact is not None:
+        (px, sx), wx = exact[:2], exact[2]
+        sl_x, j_x = sx
+        xs = [px, sl_x.phase_up, sl_x.phase_dn, sl_x.logdet_up, sl_x.logdet_dn, j_x.u,
+              sl_x.mog_up, sl_x.mog_dn, wx]
+        agree3 = agree & ~torch.any(torch.any(px != pos.double(), dim=-1) != moved_k, dim=1)
+        res["walkers_agreeing_with_float64"] = int(torch.sum(agree3))
+    nconf = pos.shape[0]
     worst = 0.0
-    for a, b in pairs:
-        err = torch.abs(a - b)[agree]
-        worst = max(worst, float(torch.max(err)))
-        check(bool(torch.all(err <= 1e-4 * (1 + torch.abs(b[agree])))),
-              f"f32 {label}: agreeing walkers differ by {float(torch.max(err)):.3e}")
+    for i, (name, (a, b)) in enumerate(zip(names, pairs)):
+        err = (torch.abs(a - b).reshape(nconf, -1).double()
+               / (1 + torch.abs(b).reshape(nconf, -1).double())).amax(dim=1)
+        err = torch.where(agree, err, torch.zeros_like(err))
+        worst = max(worst, float(torch.max(torch.abs(a - b)[agree])))
+        if exact is None:
+            check(bool(torch.all(err <= 1e-4)),
+                  f"f32 {label}: agreeing walkers' {name} differ by {float(torch.max(err)):.3e}")
+            continue
+
+        def vs_exact(v):
+            x = xs[i].double().reshape(nconf, -1)
+            e = (torch.abs(v.double().reshape(nconf, -1) - x) / (1 + torch.abs(x))).amax(dim=1)
+            return torch.where(agree3, e, torch.zeros_like(e))
+
+        ek, ep = vs_exact(a), vs_exact(b)
+        w = int(torch.argmax(err))
+        res[name] = {"max_err_over_1_plus_abs": float(err[w]), "path_cond_there": float(cond_w[w]),
+                     "kernel_max_err_vs_float64": float(torch.max(ek)),
+                     "plain_max_err_vs_float64": float(torch.max(ep)),
+                     "walkers_kernel_err_above_3_plain_plus_1e-5": int(torch.sum(
+                         ek > 3 * ep + 1e-5))}
+        check(res[name]["kernel_max_err_vs_float64"]
+              <= 3 * res[name]["plain_max_err_vs_float64"] + 1e-5,
+              f"f32 {label}: agreeing walkers' {name} farther from float64 than 3 x the plain "
+              f"version's error + 1e-5: {json.dumps(res[name])}")
     res["max_abs_err"] = worst
-    # The inverses are updated move by move (Sherman-Morrison), so their
-    # float32 error follows the largest condition number of the orbital
-    # matrices along the sweep: after move k the first k electrons sit at
-    # their new positions. Those matrices, and the exact final inverses,
-    # come from float64 recomputes.
-    p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
-    conds = {"up": [], "dn": []}
-    for k in range(pos.shape[1] + 1):
-        sl_mid = wf.recompute(p64, torch.cat([pp[:, :k], pos[:, k:]], dim=1).double())[0]
-        conds["up"].append(torch.linalg.cond(sl_mid.mog_up[:, :, 0, :]))
-        conds["dn"].append(torch.linalg.cond(sl_mid.mog_dn[:, :, 0, :]))
     for spin, inv_k, inv_p, inv_x in [("up", sl_k.inv_up, sl_p.inv_up, sl_mid.inv_up),
                                       ("dn", sl_k.inv_dn, sl_p.inv_dn, sl_mid.inv_dn)]:
-        cond = torch.amax(torch.stack(conds[spin]), dim=0)
+        cond = conds[spin]
 
         def nrel(a, b):
             return (torch.linalg.norm((a.double() - b.double()).flatten(1), dim=1)
@@ -297,7 +392,9 @@ def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=()):
             "path_cond_there": float(cond[w]), "norm_rel_err_there": float(rel[w]),
             "kernel_err_vs_exact_there": float(nrel(inv_k, inv_x)[w]),
             "plain_err_vs_exact_there": float(nrel(inv_p, inv_x)[w]),
-            "max_norm_rel_err_path_cond_le_100": float(torch.max(rel[agree & (cond <= 100)])),
+            "max_norm_rel_err_path_cond_le_100": (
+                float(torch.max(rel[agree & (cond <= 100)]))
+                if bool(torch.any(agree & (cond <= 100))) else None),
             "max_norm_rel_err_over_path_cond": float(torch.max((rel / cond)[agree])),
             "walkers_path_cond_gt_100": int(torch.sum(cond > 100)),
             "median_path_cond": float(torch.median(cond))}
@@ -406,6 +503,192 @@ def compare_kernels(dtype):
     return res
 
 
+# --- phase 8: the periodic kernels against their plain versions ------------------
+
+def ao_shell_ops(spec, mode):
+    """Floating-point operations of one point's AO evaluation in
+    csrc/ao_shell.cuh:shell_one (mode 0 values, 1 with gradients, 2 with
+    laplacians), counted as in kernel_bounds."""
+    total = 0
+    for g in spec.groups:
+        l = g.l
+        comps = [(i, j, l - i - j) for i in range(l, -1, -1) for j in range(l - i, -1, -1)]
+        nc, ns = len(comps), 2 * l + 1
+        nonzero = sum(1 for c in comps for x in c if x > 0)
+        for coef in g.coef:
+            prims = int(np.count_nonzero(coef))
+            ops = 8 + prims * (4 + 2 * mode) + 3 * l + 3 * nc + 2 * nc * ns
+            if mode >= 1:
+                ops += 5 * nc + 5 * nonzero + 6 * nc * ns
+            if mode >= 2:
+                ops += 8 * nc + 6 * nonzero + 2 * nc * ns
+            total += ops
+    return total
+
+
+def kernel_bounds_pbc(wf, geometry, nconf, accepted, m_value_mo, m_gto_eval, itemsize=4):
+    """{kernel: (bytes, operations)} of one launch of K7, K3 and K6 at the
+    diamond shapes: every input read once, every output written once; K7's
+    Sherman-Morrison counted for this run's accepted moves."""
+    from pyqmc_tpu_torch.ops.gto_kernels import GTOTables
+    from pyqmc_tpu_torch.ops.move_sweep_pbc import PBCTables
+
+    slater, jastrow = wf.wfs
+    orb = slater.orbitals
+    spec = orb._repl_spec
+    nup, ndn = slater.nup, slater.ndn
+    nelec, n, nao, ntot = nup + ndn, max(nup, ndn), spec.nao, nup + ndn
+    g = GTOTables(spec)
+    gtab = g._tab.size * itemsize + 4 * g._meta.size
+    t = PBCTables(geometry, slater, jastrow, orb)
+    ptab = t.ntab * itemsize + 4 * t._meta.size
+    out = {}
+    out["value_mo"] = ((3 + ntot) * m_value_mo * itemsize + nao * ntot * itemsize + gtab,
+                       m_value_mo * (ao_shell_ops(spec, 0) + 2 * nao * ntot))
+    out["gto_eval"] = ((3 + 5 * nao) * m_gto_eval * itemsize + gtab,
+                       m_gto_eval * ao_shell_ops(spec, 2))
+    basis_ops = {"polypade": 22, "cutoffcusp": 20}
+    jas = (jastrow.natom * (9 + 9 + sum(basis_ops[b.kind] + 9 for b in jastrow.a_basis))
+           + (nelec - 1) * (9 + 9 + sum(basis_ops[b.kind] + 9 for b in jastrow.b_basis)))
+    move = (8 * n + 2 * jas + 2 * 10 + 27 * 4 + 9 + n * (5 + ao_shell_ops(spec, 1) / n
+                                                         + 8 * nao) + 8 * n + 30)
+    update = 2 * n * n + 3 * n * n + 4 * n + 6
+    rows = 3 * nelec + nup * nup + ndn * ndn + 4 + 4 * nup * nup + 4 * ndn * ndn + 1
+    out["pbc_sweep"] = ((2 * rows + 3 * nelec + nelec + 3 * nelec + 1) * nconf * itemsize
+                        + nao * ntot * itemsize + ptab,
+                        int(nconf * nelec * move + accepted * update))
+    return out
+
+
+def all_plain(fn):
+    """fn with the orbitals evaluated without K3 and K6: a plain version
+    throughout."""
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+
+    def run(*args):
+        with plain_orbitals():
+            return fn(*args)
+
+    return run
+
+
+def close_rel(label, k, p, tol):
+    """|k - p| <= tol (|p| + max |p|) entrywise; returns the max abs error."""
+    err = torch.abs(k - p)
+    scale = float(torch.max(torch.abs(p)))
+    check(bool(torch.all(err <= tol * (torch.abs(p) + scale))),
+          f"{label}: max abs err {float(torch.max(err)):.3e} (max |plain| {scale:.3e})")
+    return float(torch.max(err))
+
+
+def compare_pbc_kernels(dtype):
+    """Phase 8 for one dtype: K7, K6 and K3 at the diamond shapes, K3 at
+    H2O's. Returns the measured numbers."""
+    from pyqmc_tpu_torch.entry import diamond_setup, h2o_setup
+    from pyqmc_tpu_torch.method.vmc import draw_streams
+    from pyqmc_tpu_torch.observables.ecp import systematic_downselect
+    from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
+
+    sup, wf, params, configs, acc = diamond_setup(DIAMOND_NCONF, device="cuda", dtype=dtype,
+                                                  seed=21)
+    params = randomize_jastrow(params, 22)
+    pos, wrap = configs.positions, configs.wrap
+    nelec = pos.shape[1]
+    orb = wf.wfs[0].orbitals
+    state = wf.recompute(params, pos)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    streams = draw_streams(gen, 1, nelec, DIAMOND_NCONF, TSTEP, pos.device, dtype,
+                           downselect=True)
+    gauss, unif = streams["gauss"][0], streams["unif"][0]
+    sweep = build_fused_sweep(wf, configs.geometry, TSTEP)
+    check(type(sweep).__name__ == "FusedSweepPBC", "the diamond wavefunction is outside K7's gate")
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    res = {}
+
+    # K7, the periodic sweep
+    sweep_plain = all_plain(sweep.plain)
+    pk, wk, sk, acck = sweep.kernel(params, pos, wrap, state, gauss, unif)
+    pp, wp, sp, accp = sweep_plain(params, pos, wrap, state, gauss, unif)
+    exact = None
+    if dtype == torch.float32:  # the plain version in float64 from the same inputs
+        p64 = cast_tree(params, torch.float64)
+        px, wx, sx, _ = sweep_plain(p64, pos.double(), wrap, wf.recompute(p64, pos.double()),
+                                    gauss.double(), unif.double())
+        exact = (px, sx, wx)
+    torch.cuda.synchronize()
+    res["pbc_sweep"] = compare_sweeps("periodic sweep", dtype, wf, params, pos, (pk, sk), (pp, sp),
+                                      extras=[("wrap", wk.to(dtype), wp.to(dtype))], exact=exact)
+    res["pbc_sweep"]["acceptance"] = float(acck) / nelec
+    res["pbc_sweep"]["walkers_with_a_wrap"] = int(torch.sum(torch.any(
+        (wk != wrap).reshape(DIAMOND_NCONF, -1), dim=1)))
+    if dtype == torch.float64:  # the same count of accepted moves (means summed in two orders)
+        check(abs(float(acck) - float(accp)) * DIAMOND_NCONF < 0.5,
+              f"f64 periodic acceptance {float(acck)} != {float(accp)}")
+
+    # K6 at one kinetic-energy chunk: 32 electrons x 500 walkers
+    chunk = max(1, 16384 // DIAMOND_NCONF)
+    X6, _ = orb._fold(pos[:, :chunk].reshape(-1, 3))
+    ev2 = orb._eval2
+    out_k, out_p = ev2.kernel(X6), ev2.plain(X6)
+    res["gto_eval"] = {"points": X6.shape[0], "max_abs_err": max(
+        close_rel(f"{dtype} K6 {name}", a, b, tol)
+        for name, a, b in zip(("ao", "grad", "lap"), out_k, out_p))}
+
+    # K3 at one ECP chunk: 21 electrons x 500 walkers x 24 selected points
+    ecp = acc["energy"].ecp_acc
+    k3 = 262144 // (DIAMOND_NCONF * ecp.nselect)
+    aux, T = ecp.quadrature_geometry(pos[:, :k3].transpose(0, 1), streams["rot"][0][:k3])
+    idx, _ = systematic_downselect(T, ecp.nselect, streams["u_sel"][0][:k3])
+    aux = torch.gather(aux, 2, idx[..., None].expand(*idx.shape, 3)).reshape(-1, 3)
+    X3, _ = orb._fold(aux)
+    R = orb._folded_coeff(params["wf0"], dtype)
+    vm = orb._value_mo
+    res["value_mo"] = {"points": X3.shape[0], "max_abs_err": close_rel(
+        f"{dtype} K3", vm.kernel_t(X3, R), vm.plain_t(X3, R), tol)}
+
+    # K3 at H2O's 23 AOs, on its ECP points of all 8 electrons
+    _, hwf, hparams, hconf, hacc = h2o_setup(NCONF, device="cuda", dtype=dtype, seed=11)
+    hgen = torch.Generator(device="cuda").manual_seed(13)
+    hst = draw_streams(hgen, 1, 8, NCONF, TSTEP, hconf.positions.device, dtype)
+    hx, _ = hacc["energy"].ecp_acc.quadrature_geometry(hconf.positions.transpose(0, 1),
+                                                       hst["rot"][0])
+    hx = hx.reshape(-1, 3)
+    hp = hparams["wf0"]
+    hC = torch.cat([hp["mo_coeff_alpha"], hp["mo_coeff_beta"]], dim=1)
+    hvm = hwf.wfs[0].orbitals._value_mo
+    res["value_mo_h2o"] = {"points": hx.shape[0], "max_abs_err": close_rel(
+        f"{dtype} K3 H2O", hvm.kernel_t(hx, hC), hvm.plain_t(hx, hC), tol)}
+    if dtype == torch.float64:
+        return res
+
+    calls = {"pbc_sweep": (lambda: sweep.kernel(params, pos, wrap, state, gauss, unif),
+                           lambda: sweep_plain(params, pos, wrap, state, gauss, unif), 5, 1),
+             "gto_eval": (lambda: ev2.kernel(X6), lambda: ev2.plain(X6), 10, 3),
+             "value_mo": (lambda: vm.kernel_t(X3, R), lambda: vm.plain_t(X3, R), 10, 3),
+             "value_mo_h2o": (lambda: hvm.kernel_t(hx, hC), lambda: hvm.plain_t(hx, hC), 20, 5)}
+    for name, (kern, plain, nk, np_) in calls.items():
+        res[name]["ms"] = cuda_ms(kern, nk)
+        res[name]["plain_ms"] = cuda_ms(plain, np_)
+    bounds = kernel_bounds_pbc(wf, configs.geometry, DIAMOND_NCONF, res["pbc_sweep"]["accepted_moves"],
+                               X3.shape[0], X6.shape[0])
+    for name, (nbytes, ops) in bounds.items():
+        ms, by = bound_ms(nbytes, ops)
+        res[name].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
+    # the rest of a periodic step, each piece alone (wrappers and plain ops)
+    from pyqmc_tpu_torch.observables.energy import kinetic_energy
+
+    res["kinetic_ms"] = cuda_ms(lambda: kinetic_energy(wf, params, state, pos), 3)
+    res["ewald_ms"] = cuda_ms(lambda: acc["energy"].coulomb.energy(pos), 3)
+    res["ecp_ms"] = cuda_ms(lambda: ecp(wf, params, state, pos, streams["rot"][0],
+                                        streams["u_sel"][0]), 3)
+    res["recompute_ms"] = cuda_ms(lambda: wf.recompute(params, pos), 3)
+    nbytes = (3 + 8) * hx.shape[0] * 4 + 23 * 8 * 4
+    ops = hx.shape[0] * (ao_shell_ops(hwf.wfs[0].orbitals.spec, 0) + 2 * 23 * 8)
+    ms, by = bound_ms(nbytes, ops)
+    res["value_mo_h2o"].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
+    return res
+
+
 # --- traces -----------------------------------------------------------------------
 
 def traced(run):
@@ -450,8 +733,8 @@ def report_trace(phase, what, nsteps, trace, untraced_s):
 
 
 def timed_in_turns(fns, run):
-    """run(fn) for fn in plain, kernel, kernel, plain; returns mean seconds
-    of each and the four times."""
+    """run(name, fn) for fn in plain, kernel, kernel, plain; returns mean
+    seconds of each and the four times."""
     times = {"kernel": [], "plain": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         torch.cuda.synchronize()
@@ -466,14 +749,19 @@ def main():
     t_start = time.perf_counter()
     # phase 0: the card (and the package: nothing is printed without both)
     check(torch.cuda.is_available(), "no CUDA device; the port's kernels run only on a GPU")
-    from pyqmc_tpu_torch.ops import _build, ecp_energy, move_sweep, tmove_sweep
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+    from pyqmc_tpu_torch.ops import _build, ecp_energy, gto_kernels, move_sweep, move_sweep_pbc
+    from pyqmc_tpu_torch.ops import tmove_sweep
 
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"phase 0: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     counters = {"vmc_sweep": move_sweep.LAUNCHES, "ecp_energy": ecp_energy.LAUNCHES,
-                "dmc_sweep": move_sweep.DMC_LAUNCHES, "tmove_sweep": tmove_sweep.LAUNCHES}
+                "dmc_sweep": move_sweep.DMC_LAUNCHES, "tmove_sweep": tmove_sweep.LAUNCHES,
+                "value_mo": gto_kernels.VALUE_MO_LAUNCHES,
+                "gto_eval": gto_kernels.EVAL_GTO2_LAUNCHES, "pbc_sweep": move_sweep_pbc.LAUNCHES}
+    h2o_kernels = ("vmc_sweep", "ecp_energy", "dmc_sweep", "tmove_sweep")
 
     def reset_counts():
         for c in counters.values():
@@ -493,11 +781,13 @@ def main():
                 if "Compiling entry function" in line or "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip().replace("ptxas info    : ", ""), flush=True)
 
-    # phase 2: kernels against their plain versions
-    r64 = compare_kernels(torch.float64)
-    print("phase 2 float64: " + json.dumps(r64), flush=True)
-    r32 = compare_kernels(torch.float32)
-    print("phase 2 float32: " + json.dumps(r32), flush=True)
+    # phase 2: kernels against their plain versions (which evaluate their
+    # MO values without K3; the four kernels call no orbital evaluator)
+    with plain_orbitals():
+        r64 = compare_kernels(torch.float64)
+        print("phase 2 float64: " + json.dumps(r64), flush=True)
+        r32 = compare_kernels(torch.float32)
+        print("phase 2 float32: " + json.dumps(r32), flush=True)
 
     # phase 3: the VMC path through the entry points
     from pyqmc_tpu_torch.entry import h2o_setup
@@ -518,7 +808,8 @@ def main():
               f"host time {b['block time']:.3f} s",
               flush=True)
     check(launches == {"vmc_sweep": 4 * NSTEPS, "ecp_energy": 4 * NSTEPS, "dmc_sweep": 0,
-                       "tmove_sweep": 0}, f"kernel launches on the VMC path: {launches}")
+                       "tmove_sweep": 0, "value_mo": 0, "gto_eval": 0, "pbc_sweep": 0},
+          f"kernel launches on the VMC path: {launches}")
     for b in blocks:
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
               f"non-finite energies in block {b['block']}")
@@ -575,7 +866,8 @@ def main():
               "tmove_sweep": DMC_NBLOCKS * DMC_NSTEPS,
               # warm-up steps, the energy that sets e_trial, and per block its
               # first energy plus one per step
-              "ecp_energy": nwarm + 1 + DMC_NBLOCKS * (DMC_NSTEPS + 1)}
+              "ecp_energy": nwarm + 1 + DMC_NBLOCKS * (DMC_NSTEPS + 1),
+              "value_mo": 0, "gto_eval": 0, "pbc_sweep": 0}
     check(dlaunches == expect, f"kernel launches on the DMC path: {dlaunches}, expected {expect}")
     for b in dblocks:
         check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
@@ -611,8 +903,9 @@ def main():
 
     reset_counts()
     dtk, dtp, dtimes = timed_in_turns(dfns, dmc_block)
-    check(read_counts() == {"vmc_sweep": 0, "dmc_sweep": 2 * DMC_NSTEPS,
-                            "tmove_sweep": 2 * DMC_NSTEPS, "ecp_energy": 2 * (DMC_NSTEPS + 1)},
+    check(read_counts() == {
+        "vmc_sweep": 0, "dmc_sweep": 2 * DMC_NSTEPS, "tmove_sweep": 2 * DMC_NSTEPS,
+        "ecp_energy": 2 * (DMC_NSTEPS + 1), "value_mo": 0, "gto_eval": 0, "pbc_sweep": 0},
           f"the plain DMC blocks launched kernels: {read_counts()}")
     print(f"phase 7: {DMC_NSTEPS}-step DMC block with kernels {dtk:.4f} s "
           f"({NCONF * DMC_NSTEPS / dtk:.1f} walker-steps/s), plain {dtp:.4f} s "
@@ -620,6 +913,85 @@ def main():
           flush=True)
     ours_dmc = report_trace("phase 7", "kernel DMC block", DMC_NSTEPS,
                             traced(lambda: dmc_block("traced", dfns["kernel"])), dtk)
+
+    # phase 8: the periodic kernels against their plain versions
+    p64 = compare_pbc_kernels(torch.float64)
+    print("phase 8 float64: " + json.dumps(p64), flush=True)
+    p32 = compare_pbc_kernels(torch.float32)
+    print("phase 8 float32: " + json.dumps(p32), flush=True)
+
+    # phase 9: the periodic VMC path through the entry points, default device
+    from pyqmc_tpu_torch.entry import diamond_setup
+
+    sup, wf, params, configs, acc = diamond_setup(DIAMOND_NCONF, dtype=torch.float32)
+    check(configs.positions.device.type == "cuda", "diamond_setup's default device is not the GPU")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    inner = make_vmc_block(wf, acc, configs.geometry, TSTEP, DIAMOND_NSTEPS)
+    per_block = []
+
+    def counted_block(*args):
+        before = read_counts()
+        out = inner(*args)
+        per_block.append({k: v - before[k] for k, v in read_counts().items()})
+        return out
+
+    reset_counts()
+    t0 = time.perf_counter()
+    pblocks, pconfigs = vmc(wf, params, configs, nblocks=DIAMOND_NBLOCKS,
+                            nsteps_per_block=DIAMOND_NSTEPS, tstep=TSTEP, accumulators=acc,
+                            generator=gen, block_fn=counted_block)
+    torch.cuda.synchronize()
+    t_pbc = time.perf_counter() - t0
+    plaunches = read_counts()
+    # launches per step: one sweep, one K6 per kinetic-energy chunk of
+    # 16384 // nconf electrons, one K3 per ECP chunk of 262144 // (nconf
+    # nselect) electrons; 1, 2 and 4 at 500 walkers
+    nelec, nsel = sum(sup.nelec), acc["energy"].ecp_acc.nselect
+    per_step = {"pbc_sweep": 1, "gto_eval": -(-nelec // max(1, 16384 // DIAMOND_NCONF)),
+                "value_mo": -(-nelec // max(1, 262144 // (DIAMOND_NCONF * nsel)))}
+    check(DIAMOND_NCONF != 500 or per_step == {"pbc_sweep": 1, "gto_eval": 2, "value_mo": 4},
+          f"expected launches per step {per_step}")
+    for b, n in zip(pblocks, per_block):
+        print(f"phase 9 block {b['block']}: E/cell={b['energytotal'] / DIAMOND_NCELL:.6f} "
+              f"ecp/cell={b['energyecp'] / DIAMOND_NCELL:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s launches {json.dumps(n)}", flush=True)
+        check(n == {k: DIAMOND_NSTEPS * per_step.get(k, 0) for k in counters},
+              f"kernel launches in a periodic block: {n}")
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in periodic block {b['block']}")
+    e_cells = np.array([b["energytotal"] / DIAMOND_NCELL for b in pblocks[-DIAMOND_NLAST:]])
+    e_pbc, sem_pbc = float(np.mean(e_cells)), float(np.std(e_cells, ddof=1) / np.sqrt(len(e_cells)))
+    a_pbc = float(np.mean([b["acceptance"] for b in pblocks[-DIAMOND_NLAST:]]))
+    ref = DIAMOND_REF
+    window = max(5 * float(np.hypot(sem_pbc, ref["sem"])), 0.02)
+    print(f"phase 9: launches {plaunches}, E/cell(last {DIAMOND_NLAST} blocks)={e_pbc:.6f} "
+          f"+- {sem_pbc:.6f} Ha, acc={a_pbc:.4f}; JAX CPU reference {ref['e_cell']:.6f} "
+          f"+- {ref['sem']:.6f} Ha, acc {ref['acceptance']:.4f}; window {window:.6f} Ha; "
+          f"{t_pbc:.2f} s for {DIAMOND_NBLOCKS} blocks", flush=True)
+    check(abs(e_pbc - ref["e_cell"]) <= window,
+          f"periodic E/cell {e_pbc} off the JAX reference {ref['e_cell']} by more than {window}")
+    check(abs(a_pbc - ref["acceptance"]) <= 0.05,
+          f"periodic acceptance {a_pbc} off the JAX reference's {ref['acceptance']}")
+
+    # phase 10: a kernel and a plain periodic block in turns, then one traced
+    pfns = {"kernel": inner,
+            "plain": make_vmc_block(wf, acc, configs.geometry, TSTEP, DIAMOND_NSTEPS, fused=False)}
+    walk = {"pos": pconfigs.positions, "wrap": pconfigs.wrap}
+
+    def pbc_block(name, fn):
+        walk["pos"], walk["wrap"], avg = fn(params, walk["pos"], walk["wrap"], gen)
+        check(bool(torch.isfinite(avg["energytotal"])), f"non-finite {name} periodic block energy")
+
+    reset_counts()
+    ptk, ptp, ptimes = timed_in_turns(pfns, pbc_block)
+    check(read_counts() == {k: 2 * DIAMOND_NSTEPS * per_step.get(k, 0) for k in counters},
+          f"the periodic blocks' launches: {read_counts()} (the plain blocks must launch none)")
+    print(f"phase 10: {DIAMOND_NSTEPS}-step periodic block with kernels {ptk:.4f} s "
+          f"({DIAMOND_NCONF * DIAMOND_NSTEPS / ptk:.1f} walker-steps/s), plain {ptp:.4f} s "
+          f"({DIAMOND_NCONF * DIAMOND_NSTEPS / ptp:.1f} walker-steps/s); runs {json.dumps(ptimes)}",
+          flush=True)
+    ours_pbc = report_trace("phase 10", "kernel periodic block", DIAMOND_NSTEPS,
+                            traced(lambda: pbc_block("traced", inner)), ptk)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -629,9 +1001,12 @@ def main():
     replaces = {"vmc_sweep": "pyqmc_tpu/ops/move_pallas.py:278",
                 "ecp_energy": "pyqmc_tpu/ops/move_pallas.py:1151",
                 "dmc_sweep": "pyqmc_tpu/ops/move_pallas.py:278",
-                "tmove_sweep": "pyqmc_tpu/ops/move_pallas.py:727"}
+                "tmove_sweep": "pyqmc_tpu/ops/move_pallas.py:727",
+                "value_mo": "pyqmc_tpu/ops/gto_pallas.py:184",
+                "gto_eval": "pyqmc_tpu/ops/gto_pallas.py:29",
+                "pbc_sweep": "pyqmc_tpu/ops/move_pallas_pbc.py:206"}
     kernels = []
-    for name in ("vmc_sweep", "ecp_energy", "dmc_sweep", "tmove_sweep"):
+    for name in h2o_kernels:
         on_vmc = name in ("vmc_sweep", "ecp_energy")
         n = (launches if on_vmc else dlaunches)[name]
         check(n > 0 and dlaunches[name] > 0, f"{name} was not launched on its path")
@@ -645,6 +1020,23 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": device_ms(ours_vmc if on_vmc else ours_dmc, *trace_names)})
+    for name, trace_name in (("value_mo", "value_mo_kernel"), ("gto_eval", "gto_eval_kernel"),
+                             ("pbc_sweep", "pbc_sweep_kernel")):
+        check(plaunches[name] > 0, f"{name} was not launched on the periodic path")
+        r = p32[name]
+        entry = {
+            "name": name, "route": "cuda", "source": f"pyqmc_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": plaunches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": device_ms(ours_pbc, trace_name)}
+        if name == "pbc_sweep":
+            entry["mode"] = "vmc only"
+        if name == "value_mo":
+            h = p32["value_mo_h2o"]
+            entry.update({"h2o_ms": h["ms"], "h2o_plain_ms": h["plain_ms"],
+                          "h2o_bound_ms": h["bound_ms"], "h2o_max_abs_err": h["max_abs_err"]})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -23,10 +23,13 @@ def _t(x, device, dtype):
 
 
 def params_from_numpy(tree, device=None, dtype=None):
-    """Nested dict of arrays -> the same nesting of tensors, on the GPU
-    unless `device` says otherwise (utils/dtypes.resolve_device)."""
+    """Nested dicts, lists and tuples of arrays (the k-point orbitals keep a
+    list over k) -> the same nesting of tensors, on the GPU unless `device`
+    says otherwise (utils/dtypes.resolve_device)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     return _t(tree, device, dtype)
 
 
@@ -34,16 +37,24 @@ def params_to_numpy(tree):
     """Inverse of params_from_numpy."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
 
 
 def slater_state_from_numpy(st, device=None, dtype=None) -> SlaterState:
-    """A JAX SlaterState (fields as numpy arrays) -> the port's SlaterState."""
+    """A JAX SlaterState (fields as numpy arrays) -> the port's SlaterState;
+    the same fields serve molecular and periodic (k-point) orbitals."""
     return SlaterState(*(_t(getattr(st, f), device, dtype) for f in SlaterState._fields))
 
 
 def jastrow_state_from_numpy(st, device=None, dtype=None) -> JastrowState:
     return JastrowState(*(_t(getattr(st, f), device, dtype) for f in JastrowState._fields))
+
+
+def wrap_from_numpy(wrap, device=None) -> torch.Tensor:
+    """Integer wrap counts (nconf, nelec, 3) of periodic walkers, as int32."""
+    return torch.tensor(np.asarray(wrap), dtype=torch.int32, device=resolve_device(device))
 
 
 def dmc_streams_from_numpy(streams, device=None, dtype=None):

@@ -33,6 +33,7 @@ have been queued. Not ported: `mesh=`, the checkpoint file with restart
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import time
 from typing import Optional
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..configs import Configs
+from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, limdrift_umrigar, sweep_plain
 from ..ops.tmove_sweep import build_fused_tmove_sweep, tmove_sweep_plain
@@ -123,7 +125,9 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
     T-move sweep out (the locality approximation). fused=True takes the
     CUDA kernels when the wavefunction passes their gates (their wrappers
     run the plain versions for CPU tensors); fused=False always runs the
-    plain sweeps.
+    plain sweeps and evaluates the orbitals without K3 and K6
+    (models/orbitals.py:plain_orbitals). The ECP energy's kernel K2 is the
+    accumulator's own choice (ECPAccumulator(fused=)).
     """
     accumulators = accumulators or {}
     nelec = wf.nelec
@@ -137,9 +141,15 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
         tmove = build_fused_tmove_sweep(wf, geometry, ecp_acc, tstep) if fused else None
         if tmove is None:
             tmove = functools.partial(tmove_sweep_plain, wf, geometry, ecp_acc, tstep)
+    orbitals = contextlib.nullcontext if fused else plain_orbitals
 
     def block(params, positions, wrap, weights, generator, e_trial, e_est, esigma,
               streams=None):
+        with orbitals():
+            return run(params, positions, wrap, weights, generator, e_trial, e_est, esigma,
+                       streams)
+
+    def run(params, positions, wrap, weights, generator, e_trial, e_est, esigma, streams):
         nconf = positions.shape[0]
         if streams is None:
             streams = draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, positions.device,

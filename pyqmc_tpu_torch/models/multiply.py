@@ -28,14 +28,25 @@ def default_move_finish(w, params, state, e, epos, aux):
     return w.gradient_value(params, state, e, epos)
 
 
-def default_testvalue_aux_all(w, params, state, aux):
-    """Ratios (nelec, nconf, naux) for moving each electron e to its own
-    points aux[e] (nelec, nconf, naux, 3): the dense ECP quadrature.
-    Factors whose per-point cost is an electron-independent evaluation
-    implement testvalue_aux_all; the rest are called per electron."""
+def default_testvalue_aux_all(w, params, state, aux, es=None):
+    """Ratios (ne, nconf, naux) for moving electron es[i] to its own points
+    aux[i] (ne, nconf, naux, 3), es a static sequence of electron indices
+    (None: all electrons in order): the ECP quadrature. Factors whose
+    per-point cost is an electron-independent evaluation implement
+    testvalue_aux_all; the rest are called per electron."""
     if hasattr(w, "testvalue_aux_all"):
-        return w.testvalue_aux_all(params, state, aux)
-    return torch.stack([w.testvalue(params, state, e, aux[e])[0] for e in range(aux.shape[0])])
+        return w.testvalue_aux_all(params, state, aux, es=es)
+    es = range(aux.shape[0]) if es is None else es
+    return torch.stack([w.testvalue(params, state, int(e), aux[i])[0] for i, e in enumerate(es)])
+
+
+def default_gradient_laplacian_many(w, params, state, es, epos):
+    """(grad (nconf, k, 3), lap (nconf, k)) of electrons es at epos
+    (nconf, k, 3): one batched call where the factor has one, else a loop."""
+    if hasattr(w, "gradient_laplacian_many"):
+        return w.gradient_laplacian_many(params, state, es, epos)
+    outs = [w.gradient_laplacian(params, state, int(e), epos[:, i]) for i, e in enumerate(es)]
+    return torch.stack([g for g, _ in outs], dim=1), torch.stack([l for _, l in outs], dim=1)
 
 
 class MultiplyWF:
@@ -72,10 +83,10 @@ class MultiplyWF:
             saved.append(sv)
         return ratio, tuple(saved)
 
-    def testvalue_aux_all(self, params, state, aux):
+    def testvalue_aux_all(self, params, state, aux, es=None):
         ratio = None
         for w, p, s in zip(self.wfs, self._split(params), state):
-            ri = default_testvalue_aux_all(w, p, s, aux)
+            ri = default_testvalue_aux_all(w, p, s, aux, es=es)
             ratio = ri if ratio is None else ratio * ri
         return ratio
 
@@ -111,6 +122,16 @@ class MultiplyWF:
         gs, laps = [], []
         for w, p, s in zip(self.wfs, self._split(params), state):
             gi, li = w.gradient_laplacian(p, s, e, epos)
+            gs.append(gi)
+            laps.append(li)
+        gtot = sum(gs)
+        cross = torch.sum(gtot * gtot, dim=-1) - sum(torch.sum(g * g, dim=-1) for g in gs)
+        return gtot, sum(laps) + cross
+
+    def gradient_laplacian_many(self, params, state, es, epos):
+        gs, laps = [], []
+        for w, p, s in zip(self.wfs, self._split(params), state):
+            gi, li = default_gradient_laplacian_many(w, p, s, es, epos)
             gs.append(gi)
             laps.append(li)
         gtot = sum(gs)

@@ -4,7 +4,9 @@ pyqmc_tpu/models/slater.py).
 Only the single determinant is ported; `SlaterState` keeps the JAX
 package's shapes, with a determinant axis of length 1, so states convert
 leaf for leaf. Methods are pure and batched over walkers; the electron
-index `e` is a Python int, so the spin branch is chosen on the host.
+index `e` is a Python int, so the spin branch is chosen on the host. The
+orbitals are molecular (MolecularOrbitals, built from mo_coeff) or any
+evaluator with the same protocol, such as KPointOrbitals.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import sherman_morrison_row, slogdet_inv
+from ..utils.constants import index_tensor
 from ..utils.dtypes import real_dtype, resolve_device
 from .orbitals import MolecularOrbitals
 
@@ -52,18 +55,31 @@ class DeterminantExpansion:
 
 
 class Slater:
-    """params: {"det_coeff": (1,), "mo_coeff_alpha": (nao, norb_up),
-    "mo_coeff_beta": (nao, norb_dn)}; electron e occupies orbitals 0..n-1
-    of its spin."""
+    """params: {"det_coeff": (1,)} plus the orbitals' parameters
+    ({"mo_coeff_alpha": (nao, norb_up), "mo_coeff_beta": (nao, norb_dn)}
+    for molecular orbitals); electron e occupies orbitals 0..n-1 of its
+    spin.
 
-    def __init__(self, mol, mo_coeff, det_coeff=None):
+    Slater(mol, mo_coeff) builds MolecularOrbitals;
+    Slater(mol, orbitals=evaluator, expansion=DeterminantExpansion.single(
+    nup, ndn)) takes a ready evaluator (the JAX package's
+    Slater(mol, orbitals, expansion))."""
+
+    def __init__(self, mol, mo_coeff=None, det_coeff=None, orbitals=None, expansion=None):
         self.nup, self.ndn = mol.nelec
         self.nelec = self.nup + self.ndn
-        self.orbitals = MolecularOrbitals(mol, mo_coeff)
+        self.orbitals = orbitals if orbitals is not None else MolecularOrbitals(mol, mo_coeff)
         if self.orbitals.norb[0] < self.nup or self.orbitals.norb[1] < self.ndn:
-            raise ValueError(f"mo_coeff has {self.orbitals.norb} orbitals for "
+            raise ValueError(f"the orbitals have {self.orbitals.norb} columns for "
                              f"{mol.nelec} electrons")
-        self.expansion = DeterminantExpansion.single(self.nup, self.ndn)
+        single = DeterminantExpansion.single(self.nup, self.ndn)
+        if expansion is not None and not (
+                np.array_equal(expansion.occ_up, single.occ_up)
+                and np.array_equal(expansion.occ_dn, single.occ_dn)
+                and len(expansion.map_up) == 1):
+            raise NotImplementedError("only the single determinant of the first n orbitals "
+                                      "is ported")
+        self.expansion = single
         self._det_coeff0 = np.ones(1) if det_coeff is None else np.asarray(det_coeff)
 
     @staticmethod
@@ -118,18 +134,52 @@ class Slater:
         mo_up, mo_dn = self.orbitals.eval(params, epos, 0)
         return self._ratio(state, e, mo_up, mo_dn), {"mo_up": mo_up, "mo_dn": mo_dn}
 
-    def testvalue_aux_all(self, params, state, aux):
-        """Ratios (nelec, nconf, naux) for moving each electron e to its own
-        points aux[e] (nelec, nconf, naux, 3): the dense ECP quadrature. The
-        orbital evaluation runs once on the flat point set."""
+    def _ratio_many(self, state, es, mo_up, mo_dn):
+        """Ratios for electrons es (static), electron es[i] at the points
+        whose orbitals are mo_*[:, i] (nconf, k, ..., norb_s); returns
+        (nconf, k, ...)."""
+        parts, order = [], []
+        for s, (mo, inv, n, base) in enumerate(((mo_up, state.inv_up, self.nup, 0),
+                                                (mo_dn, state.inv_dn, self.ndn, self.nup))):
+            idxs = [i for i, e in enumerate(es) if (e < self.nup) == (s == 0)]
+            if not idxs:
+                continue
+            rows = index_tensor([es[i] - base for i in idxs], inv.device)
+            icol = inv[:, 0][:, :, rows]  # (nconf, n, k_s)
+            sel = mo[:, index_tensor(idxs, mo.device)][..., :n]
+            parts.append(torch.einsum("ck...j,cjk->ck...", sel, icol))
+            order += idxs
+        out = torch.cat(parts, dim=1)
+        if order != sorted(order):
+            out = out[:, index_tensor(np.argsort(order), out.device)]
+        return out
+
+    def testvalue_aux_all(self, params, state, aux, es=None):
+        """Ratios (ne, nconf, naux) for moving electron es[i] to its own
+        points aux[i] (ne, nconf, naux, 3), es a static sequence of electron
+        indices (None: all, in order): the ECP quadrature. The orbitals are
+        evaluated once on the flat point set, in the transposed layout
+        (norb, points) of eval_mo_t (K3's layout, as models/slater.py:239-313
+        consumes it)."""
         ne, nc, nq, _ = aux.shape
-        mo_up, mo_dn = self.orbitals.eval(params, aux.reshape(-1, 3), 0)
-        nup, ndn = self.nup, self.ndn
-        mo_up = mo_up.reshape(ne, nc, nq, -1)[:nup, ..., :nup]
-        mo_dn = mo_dn.reshape(ne, nc, nq, -1)[nup:, ..., :ndn]
-        r_up = torch.einsum("ecqj,cje->ecq", mo_up, state.inv_up[:, 0])
-        r_dn = torch.einsum("ecqj,cje->ecq", mo_dn, state.inv_dn[:, 0])
-        return torch.cat([r_up, r_dn], dim=0)
+        es = tuple(range(ne)) if es is None else tuple(int(e) for e in es)
+        mo_r = self.orbitals.eval_mo_t(params, aux.reshape(-1, 3)).reshape(-1, ne, nc, nq)
+        norb_up = self.orbitals.norb[0]
+        outs, order = [], []
+        for s, (inv, n, off, base) in enumerate(((state.inv_up, self.nup, 0, 0),
+                                                 (state.inv_dn, self.ndn, norb_up, self.nup))):
+            idxs = [i for i, e in enumerate(es) if (e < self.nup) == (s == 0)]
+            if not idxs:
+                continue
+            rows = index_tensor([es[i] - base for i in idxs], inv.device)
+            sel = mo_r[off:off + n][:, index_tensor(idxs, mo_r.device)]  # (n, k, nc, nq)
+            icol = inv[:, 0][:, :, rows]  # (nc, n, k)
+            outs.append(torch.einsum("jkcq,cjk->kcq", sel, icol))
+            order += idxs
+        out = torch.cat(outs, dim=0)
+        if order != sorted(order):
+            out = out[index_tensor(np.argsort(order), out.device)]
+        return out
 
     def gradient_value(self, params, state, e, epos):
         """(grad psi/psi at epos (nconf, 3), ratio (nconf,), saved)."""
@@ -163,6 +213,16 @@ class Slater:
         gratio = self._ratio(state, e, gmo_up, gmo_dn)
         lratio = self._ratio(state, e, lmo_up, lmo_dn)
         return gratio / ratio[:, None], lratio / ratio
+
+    def gradient_laplacian_many(self, params, state, es, epos):
+        """gradient_laplacian of electrons es (static) at epos (nconf, k, 3):
+        one orbital evaluation of all k * nconf points (K6's launch on the
+        periodic path) -> (grad (nconf, k, 3), lap (nconf, k))."""
+        mo_up, mo_dn, gmo_up, gmo_dn, lmo_up, lmo_dn = self.orbitals.eval(params, epos, 2)
+        ratio = self._ratio_many(state, es, mo_up, mo_dn)
+        g = self._ratio_many(state, es, gmo_up, gmo_dn)
+        lap = self._ratio_many(state, es, lmo_up, lmo_dn)
+        return g / ratio[..., None], lap / ratio
 
     def updateinternals(self, params, state, e, epos, mask, saved):
         """Sherman-Morrison update where `mask`, plus the orbital cache row."""

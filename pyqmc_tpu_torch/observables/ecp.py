@@ -11,8 +11,15 @@ rotation per (walker, electron) shared by that electron's atoms.
 Rotations come in as tensors (nelec, nconf, 3, 3): the VMC and DMC blocks
 draw them from a torch.Generator (`rotations_from_quaternions`), and the
 parity tests pass the JAX package's own draws. `tmove_quadrature` gives the
-DMC T-move sweep one electron's points, weights and ratios. The
-downselected and flat paths of the JAX package are not ported yet.
+DMC T-move sweep one electron's points, weights and ratios.
+
+Periodic cells take minimal-image electron-atom displacements. Where an
+electron has more quadrature points than `nselect` (a solid: "auto" caps
+them at 4 atoms' worth), `systematic_downselect` keeps the |T|-largest half
+and samples the rest with one stratified uniform per (electron, walker),
+`u_sel` (nelec, nconf); the selected points' ratios then go through one
+flat `testvalue_aux_all` call per static chunk of electrons
+(ops/ecp_energy.py:ecp_nonlocal_plain).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..ops import distances as _dist
 from ..utils.constants import DeviceConstants
 
 
@@ -124,6 +132,36 @@ def legendre(l, x):
     raise ValueError(f"l={l} not supported")
 
 
+def systematic_downselect(T, nselect, u):
+    """Pick nselect of the nq points of each row of T (..., nq): the
+    nselect // 2 largest |T| deterministically, the rest by a systematic
+    scan of the normalised CDF of the remaining |T| with one uniform u (...)
+    per row, importance-weighted (observables/ecp.py:217-276, with the CDF
+    normalised by its own last value and zero weight for a pick of zero
+    probability). Returns (idx (..., nselect) int64, wts (..., nselect))."""
+    nq = T.shape[-1]
+    ndet = nselect // 2
+    nstoch = nselect - ndet
+    absT = torch.abs(T)
+    # a stable sort keeps the lowest index first among equal |T|, as
+    # lax.top_k does
+    topv, topi = torch.sort(absT, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :ndet], topi[..., :ndet]
+    rest = absT.scatter(-1, topi, torch.zeros_like(topv))
+    norm = torch.sum(rest, dim=-1, keepdim=True)
+    p = rest / torch.where(norm == 0, torch.ones_like(norm), norm)
+    cum = torch.cumsum(p, dim=-1)
+    cum = cum / torch.clamp(cum[..., -1:], min=1e-30)
+    targets = (u[..., None] + torch.arange(nstoch, dtype=T.dtype, device=T.device)) / nstoch
+    sidx = torch.sum(cum[..., None, :] <= targets[..., :, None], dim=-1)
+    sidx = torch.clamp(sidx, 0, nq - 1)
+    pw = torch.gather(p, -1, sidx)
+    any_rest = (norm > 0).to(T.dtype)
+    wstoch = torch.where(pw > 0, any_rest / (nstoch * torch.clamp(pw, min=1e-30)),
+                         torch.zeros_like(pw))
+    return torch.cat([topi, sidx], dim=-1), torch.cat([torch.ones_like(topv), wstoch], dim=-1)
+
+
 # --- radial channels --------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -171,15 +209,22 @@ def parse_ecp(mol) -> List[AtomECP]:
 
 
 class ECPAccumulator:
-    """ecp(wf, params, state, positions, rot) -> per-walker ECP energy.
+    """ecp(wf, params, state, positions, rot, u_sel=None) -> per-walker ECP
+    energy.
 
     fused=True binds the hand-written CUDA kernel (ops/ecp_energy.py) for
     the nonlocal part when the wavefunction passes its gate; the kernel's
     wrapper runs the plain chain for CPU tensors. fused=False always runs
     the plain chain.
+
+    nselect: quadrature points evaluated per electron; None evaluates all;
+    "auto" caps them at 4 atoms' worth where an electron has more
+    (observables/ecp.py:350-353). echunk: electrons per flat ratio call;
+    "auto" bounds a call at 262,144 points (:660-749).
     """
 
-    def __init__(self, mol, rmax: float = 10.0, fused: bool = True):
+    def __init__(self, mol, rmax: float = 10.0, fused: bool = True, nselect="auto",
+                 echunk="auto"):
         self.atoms = parse_ecp(mol)
         # quadrature only on atoms with nonlocal channels; per-atom grid
         # size 12 for a multi-channel ECP, 6 for a single channel (the JAX
@@ -187,15 +232,24 @@ class ECPAccumulator:
         self.nl_atoms = [a for a in self.atoms if a.nonlocal_channels]
         atom_naip = [12 if len(a.nonlocal_channels) > 1 else 6 for a in self.nl_atoms]
         self.atom_coords = np.asarray(mol.atom_coords)
+        lattice = getattr(mol, "lattice", None)
+        self._lattice = None if lattice is None else np.asarray(lattice, dtype=np.float64)
+        self._mic_mode = _dist.classify_lattice(self._lattice)
         self.atom_naip = atom_naip
         grids = {n: ecp_quadrature_grid(n) for n in set(atom_naip)}
         self.atom_quad = [grids[n] for n in atom_naip]
         self.nq_total = sum(atom_naip)
         self.nelec = sum(mol.nelec)
         self.rmax = rmax
+        if nselect == "auto":
+            cap = 4 * max(atom_naip, default=0)
+            nselect = None if self.nq_total <= cap else cap
+        self.nselect = nselect
+        self.echunk = echunk
         self.fused = fused
         self._nonlocal_cache = {}
         self._build_quadrature_groups()
+        self._build_mic()
 
     def _build_quadrature_groups(self):
         """Per-naip atom groups (sorted by naip) with padded radial tables:
@@ -228,30 +282,67 @@ class ECPAccumulator:
         self._local_coords = DeviceConstants(
             coords=np.asarray([self.atom_coords[a.atom] for a in self.atoms]).reshape(-1, 3))
 
+    def _build_mic(self):
+        """The minimal image of electron-atom displacements. On a general
+        lattice rounding in fractional coordinates replaces the 27-image
+        search when every ECP channel is below 1e-8 from the rounding
+        cell's inradius out to rmax (observables/ecp.py:428-458)."""
+        self._mic_fast = False
+        self._mic_const = None
+        if self._lattice is None:
+            return
+        inv = np.linalg.inv(self._lattice)
+        self._mic_const = DeviceConstants(lat=self._lattice, lat_inv=inv,
+                                          shifts=_dist._image_shifts(self._lattice))
+        if self._mic_mode == _dist.MODE_GENERAL:
+            r_in = 0.5 * float(np.min(1.0 / np.linalg.norm(inv, axis=0)))
+            rs = np.linspace(r_in, max(self.rmax, r_in + 1e-9), 256)
+            vmax = 0.0
+            for a in self.atoms:
+                chans = list(a.nonlocal_channels) + ([a.local] if a.local is not None else [])
+                for ch in chans:
+                    v = sum(c * rs ** (n - 2) * np.exp(-e * rs * rs)
+                            for c, e, n in zip(ch.coeffs, ch.exps, ch.powers))
+                    vmax = max(vmax, float(np.max(np.abs(v))))
+            self._mic_fast = vmax < 1e-8
+
+    def _mic(self, d):
+        """Minimal-image displacement (identity for open boundaries)."""
+        if self._lattice is None:
+            return d
+        c = self._mic_const.get(d.device, d.dtype)
+        mode = _dist.MODE_ORTHORHOMBIC if self._mic_fast else self._mic_mode
+        return _dist.minimal_image(d, c["lat"], c["lat_inv"], mode, c["shifts"])
+
     def _quadrature_geometry(self, positions, e, rot_e):
         """Aux points (c, nq, 3) and weights T (c, nq) of electron e, with
         T_q = sum_l (2l+1) v_l(r_I) P_l(cos theta_q) w_q; rot_e (c, 3, 3)."""
-        nconf = positions.shape[0]
-        epos = positions[:, e, :]
+        return self.quadrature_geometry(positions[:, e, :], rot_e)
+
+    def quadrature_geometry(self, epos, rot):
+        """Aux points (..., nq, 3) and weights T (..., nq) of electrons at
+        epos (..., 3) with their rotations rot (..., 3, 3), each sphere
+        centred on the nearest image of its atom."""
+        lead = epos.shape[:-1]
         auxs, Ts = [], []
         for ls, const in self._qgroups:
-            c = const.get(positions.device, positions.dtype)
-            dirs = torch.einsum("cxy,qy->cqx", rot_e, c["pts"])  # (c, q, 3)
-            d = epos[:, None, :] - c["coords"][None]  # (c, A, 3)
-            r = torch.linalg.norm(d, dim=-1)  # (c, A)
-            aux = (epos[:, None, :] - d)[:, :, None, :] + r[:, :, None, None] * dirs[:, None]
+            c = const.get(epos.device, epos.dtype)
+            dirs = torch.einsum("...xy,qy->...qx", rot, c["pts"])  # (..., q, 3)
+            d = self._mic(epos[..., None, :] - c["coords"])  # (..., A, 3)
+            r = torch.linalg.norm(d, dim=-1)  # (..., A)
+            aux = (epos[..., None, :] - d)[..., None, :] + r[..., None, None] * dirs[..., None, :, :]
             rsafe = torch.clamp(r, min=1e-12)
-            costh = torch.einsum("cqx,cax->caq", dirs, d / rsafe[..., None])
-            inside = (r < self.rmax).to(positions.dtype)
+            costh = torch.einsum("...qx,...ax->...aq", dirs, d / rsafe[..., None])
+            inside = (r < self.rmax).to(epos.dtype)
             T = torch.zeros_like(costh)
             for l in ls:
                 rr = rsafe[..., None]
                 v = torch.sum(c[f"c{l}"] * rr ** (c[f"n{l}"] - 2.0)
                               * torch.exp(-c[f"e{l}"] * rr * rr), dim=-1)
                 T = T + ((2 * l + 1) * v * inside)[..., None] * legendre(l, costh)
-            auxs.append(aux.reshape(nconf, -1, 3))
-            Ts.append((T * c["w"][None, None, :]).reshape(nconf, -1))
-        return torch.cat(auxs, dim=1), torch.cat(Ts, dim=1)
+            auxs.append(aux.reshape(*lead, -1, 3))
+            Ts.append((T * c["w"]).reshape(*lead, -1))
+        return torch.cat(auxs, dim=-2), torch.cat(Ts, dim=-1)
 
     @property
     def active(self):
@@ -281,26 +372,26 @@ class ECPAccumulator:
         out = torch.zeros(positions.shape[0], dtype=positions.dtype, device=positions.device)
         coords = self._local_coords.get(positions.device, positions.dtype)["coords"]
         for i, a in enumerate(self.atoms):
-            r = torch.linalg.norm(positions - coords[i][None, None, :], dim=-1)
+            r = torch.linalg.norm(self._mic(positions - coords[i][None, None, :]), dim=-1)
             out = out + torch.sum(a.local.evaluate(r), dim=1)
         return out
 
     def nonlocal_fn(self, wf):
         """The nonlocal-energy function bound to `wf`: the CUDA kernel's
         wrapper when `fused` and the gate passes, else the plain chain.
-        Called as fn(params, positions, state, rot) -> (nconf,)."""
+        Called as fn(params, positions, state, rot, u_sel=None) -> (nconf,)."""
         if id(wf) not in self._nonlocal_cache:
             from ..ops.ecp_energy import build_fused_ecp_energy, ecp_nonlocal_plain
 
             fn = build_fused_ecp_energy(wf, self) if self.fused else None
             if fn is None:
-                def fn(params, positions, state, rot):
-                    return ecp_nonlocal_plain(self, wf, params, positions, state, rot)
+                def fn(params, positions, state, rot, u_sel=None):
+                    return ecp_nonlocal_plain(self, wf, params, positions, state, rot, u_sel)
             self._nonlocal_cache[id(wf)] = fn
         return self._nonlocal_cache[id(wf)]
 
-    def __call__(self, wf, params, state, positions, rot):
+    def __call__(self, wf, params, state, positions, rot, u_sel=None):
         local = self.local(positions)
         if not self.nl_atoms:
             return local
-        return local + self.nonlocal_fn(wf)(params, positions, state, rot)
+        return local + self.nonlocal_fn(wf)(params, positions, state, rot, u_sel)

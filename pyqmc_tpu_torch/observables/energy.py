@@ -1,6 +1,8 @@
 """Local-energy pieces: kinetic and open-boundary Coulomb (counterpart of
-pyqmc_tpu/observables/energy.py). Plain PyTorch: at the main path's basis
-size the JAX package runs no kernel here either."""
+pyqmc_tpu/observables/energy.py). The kinetic energy is batched over chunks
+of electrons, as the JAX package vmaps it: one gradient-laplacian
+evaluation per chunk, so the orbitals of a chunk's electrons at every
+walker are one point set (K6's launch on the periodic path)."""
 
 import numpy as np
 import torch
@@ -8,13 +10,22 @@ import torch
 from ..utils.constants import DeviceConstants
 
 
-def kinetic_energy(wf, params, state, positions):
-    """(-1/2 sum_e lap_e psi / psi, sum_e |grad_e psi / psi|^2), each (nconf,)."""
+def kinetic_energy(wf, params, state, positions, echunk="auto"):
+    """(-1/2 sum_e lap_e psi / psi, sum_e |grad_e psi / psi|^2), each (nconf,).
+
+    echunk electrons per evaluation; "auto" bounds a chunk at 16384
+    (electron, walker) points (observables/energy.py:14-90)."""
+    from ..models.multiply import default_gradient_laplacian_many
+
+    nconf, nelec = positions.shape[:2]
+    if echunk == "auto":
+        echunk = max(1, 16384 // max(nconf, 1))
     lap = grad2 = 0.0
-    for e in range(positions.shape[1]):
-        g, l = wf.gradient_laplacian(params, state, e, positions[:, e, :])
-        lap = lap + l
-        grad2 = grad2 + torch.sum(g * g, dim=-1)
+    for c0 in range(0, nelec, echunk):
+        es = tuple(range(c0, min(c0 + echunk, nelec)))
+        g, l = default_gradient_laplacian_many(wf, params, state, es, positions[:, c0:c0 + len(es)])
+        lap = lap + torch.sum(l, dim=1)
+        grad2 = grad2 + torch.sum(g * g, dim=(1, 2))
     return -0.5 * lap, grad2
 
 

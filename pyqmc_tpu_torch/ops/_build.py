@@ -48,6 +48,14 @@ _KERNELS = {
     # nmeta, nconf, nrows, nmax, tau, stream
     "pq_tmove_sweep": ("tmove_sweep.cu",
                        [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _P]),
+    # X, C, out, tab, ntab, meta, nmeta, M, norb, nao, stream
+    "pq_value_mo": ("value_mo.cu", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]),
+    # X, ao, grad, lap, tab, ntab, meta, nmeta, M, stream
+    "pq_gto_eval": ("gto_eval.cu", [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P]),
+    # state_in, state_out, gauss, unif, wrapd, nacc, R, tab, ntab, meta, nmeta,
+    # nconf, nrows, nao, ntot, nelec, tstep, drift_cutoff, stream
+    "pq_pbc_sweep": ("pbc_sweep.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                                      _I, _D, _D, _P]),
 }
 
 

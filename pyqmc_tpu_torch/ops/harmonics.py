@@ -102,3 +102,19 @@ def cart2sph_matrix(l):
         for mono, coeff in polys[mi].items():
             C[index[mono], col] = norm * coeff
     return C
+
+
+def gaussian_radial_norm(l, alpha):
+    """N with integral (N r^l e^{-a r^2})^2 r^2 dr = 1 (sphere-normalised Y)."""
+    alpha = np.asarray(alpha, dtype=np.float64)
+    return np.sqrt(2.0 * (2.0 * alpha) ** (l + 1.5) / math.gamma(l + 1.5))
+
+
+def normalize_contraction(l, alphas, coeffs):
+    """pyscf-style shell normalisation: coefficients times the primitive
+    radial norm, rescaled so the contracted radial function has unit norm."""
+    alphas = np.asarray(alphas, dtype=np.float64)
+    c = np.asarray(coeffs, dtype=np.float64) * gaussian_radial_norm(l, alphas)
+    ss = (math.gamma(l + 1.5) / 2.0
+          * np.sum(c[:, None] * c[None, :] / (alphas[:, None] + alphas[None, :]) ** (l + 1.5)))
+    return c / np.sqrt(ss)

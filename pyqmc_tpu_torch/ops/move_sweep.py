@@ -340,25 +340,27 @@ class WalkerState:
         j_params, js = _factor(self.wf, self.j_idx, params, state)
         return sl_params, sl, j_params, js
 
-    def pack(self, positions, sl, js):
-        """(rows, nconf) contiguous tensor and the row count of every leaf."""
+    def pack(self, positions, sl, js, walker_major=False):
+        """(rows, nconf) contiguous tensor, or (nconf, rows) when
+        walker_major, and the row count of every leaf."""
         nconf, dtype = positions.shape[0], positions.dtype
         u = js.u if js is not None else torch.zeros(nconf, dtype=dtype, device=positions.device)
         cols = [positions, sl.inv_up, sl.inv_dn, sl.phase_up, sl.logdet_up, sl.phase_dn,
                 sl.logdet_dn, sl.mog_up, sl.mog_dn, u]
         sizes = [c[0].numel() for c in cols]
-        packed = torch.cat([c.reshape(nconf, -1).to(dtype) for c in cols], dim=1).t().contiguous()
-        return packed, sizes
+        packed = torch.cat([c.reshape(nconf, -1).to(dtype) for c in cols], dim=1)
+        return (packed.contiguous() if walker_major else packed.t().contiguous()), sizes
 
-    def unpack(self, packed, sizes, state):
+    def unpack(self, packed, sizes, state, walker_major=False):
         """(positions, new state) from the kernel's output rows."""
         from ..models.jastrow import JastrowState
         from ..models.multiply import MultiplyWF
         from ..models.slater import SlaterState
 
-        nconf = packed.shape[1]
+        rows_last = packed if walker_major else packed.t()
+        nconf = rows_last.shape[0]
         nup, ndn = self.slater.nup, self.slater.ndn
-        out = torch.split(packed.t(), sizes, dim=1)
+        out = torch.split(rows_last, sizes, dim=1)
         pos_o = out[0].reshape(nconf, nup + ndn, 3)
         new_sl = SlaterState(
             inv_up=out[1].reshape(nconf, 1, nup, nup), inv_dn=out[2].reshape(nconf, 1, ndn, ndn),
@@ -439,10 +441,14 @@ class FusedSweep:
 def build_fused_sweep(wf, geometry, tstep, drift_cutoff=1.0, mode="vmc"):
     """FusedSweep for a wavefunction inside the gate, else None (the caller
     then uses sweep_plain). mode="dmc" applies Umrigar drift limiting and
-    the fixed-node rejection and returns (acc, r2p, r2a) last."""
+    the fixed-node rejection and returns (acc, r2p, r2a) last. A periodic
+    pattern goes to ops/move_sweep_pbc.py, as the JAX package's
+    build_fused_sweep delegates to build_fused_sweep_pbc."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     m = _match_sj(wf, geometry)
     if m is None:
-        return None
+        from .move_sweep_pbc import build_fused_sweep_pbc
+
+        return build_fused_sweep_pbc(wf, geometry, tstep, drift_cutoff, mode=mode)
     return FusedSweep(wf, geometry, tstep, drift_cutoff, m, mode=mode)

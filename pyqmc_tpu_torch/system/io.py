@@ -9,6 +9,10 @@ blobs (basis, ECP) stored as numpy unicode strings so that
 the `.npz` once from an HDF5 checkpoint; it imports h5py only when called.
 
     python -m pyqmc_tpu_torch.system.io SRC.hdf5 DST.npz
+
+Periodic cells come in the format of the JAX package's test fixtures
+(`load_cell_npz`): a primitive cell with its pyscf-format basis and ECP as
+JSON bytes, the lattice, the k-points and the per-k MO coefficients.
 """
 
 from __future__ import annotations
@@ -18,10 +22,14 @@ import os
 
 import numpy as np
 
-from .mole import MeanField, Molecule, Shell
+from ..ops.harmonics import normalize_contraction
+from .mole import Cell, MeanField, Molecule, Shell
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 H2O_CCECP = os.path.join(DATA_DIR, "h2o_ccecp-ccpvdz_ccecp_scf.npz")
+# KRKS diamond-C primitive cell, ccECP, 2x2x2 TRIM k-mesh (a byte-for-byte
+# copy of the JAX package's test fixture tests/files/diamond_primitive.npz)
+DIAMOND_PRIMITIVE = os.path.join(DATA_DIR, "diamond_primitive.npz")
 
 _SYSTEM_KEYS = ("atom_symbols", "atom_coords", "charge", "spin", "basis_json", "ecp_json")
 _SCF_KEYS = ("mo_coeff_alpha", "mo_coeff_beta", "mo_energy_alpha", "mo_energy_beta",
@@ -62,6 +70,39 @@ def basis_from_json(text: str):
         ]
         for el, entries in raw.items()
     }
+
+
+def basis_from_pyscf_json(text: str):
+    """{element: [Shell]} from pyscf-format JSON, per element a list of
+    [l, [exp, c1, c2, ...], ...]; every coefficient column becomes a shell,
+    normalised as pyscf does (system/basis.py:parse_pyscf_basis)."""
+    out = {}
+    for el, entries in json.loads(text).items():
+        shells = []
+        for entry in entries:
+            l = int(entry[0])
+            prims = np.asarray(entry[1:], dtype=np.float64)
+            for col in range(1, prims.shape[1]):
+                keep = prims[:, col] != 0.0
+                if np.any(keep):
+                    c = normalize_contraction(l, prims[keep, 0], prims[keep, col])
+                    shells.append(Shell(l=l, exps=tuple(float(e) for e in prims[keep, 0]),
+                                        coeffs=tuple(float(x) for x in c)))
+        out[el] = shells
+    return out
+
+
+def load_cell_npz(path: str = DIAMOND_PRIMITIVE):
+    """(Cell, {"kpts" (nk, 3), "mo_coeff" (nk, nao, nmo) complex, "e_tot"})
+    from a periodic `.npz` (keys basis_json, ecp_json, atom_symbols,
+    atom_coords, lattice, spin, kpts, mo_coeff, e_tot)."""
+    with np.load(path, allow_pickle=False) as z:
+        d = {k: z[k] for k in z.files}
+    ecp = json.loads(bytes(d["ecp_json"]).decode())
+    cell = Cell([s.decode() if isinstance(s, bytes) else str(s) for s in d["atom_symbols"]],
+                d["atom_coords"], basis_from_pyscf_json(bytes(d["basis_json"]).decode()),
+                d["lattice"], ecp=ecp or None, spin=int(d["spin"]))
+    return cell, {"kpts": d["kpts"], "mo_coeff": d["mo_coeff"], "e_tot": float(d["e_tot"])}
 
 
 def load_npz(path: str = H2O_CCECP):

@@ -1,4 +1,5 @@
-"""Molecule record (counterpart of pyqmc_tpu/system/mole.py, open boundary).
+"""Molecule and periodic cell records (counterpart of
+pyqmc_tpu/system/mole.py).
 
 Numpy only. The port has no basis library and no SCF: a molecule is built
 from an explicit, already normalised basis, as `system/io.py` reads it from
@@ -117,3 +118,12 @@ class MeanField:
     mo_occ: Tuple[np.ndarray, np.ndarray]
     e_tot: float
     restricted: bool
+
+
+class Cell(Molecule):
+    """Periodic system: a molecule plus a lattice (rows are the lattice
+    vectors, bohr)."""
+
+    def __init__(self, atom_symbols, atom_coords, basis, lattice, ecp=None, charge=0, spin=None):
+        super().__init__(atom_symbols, atom_coords, basis, ecp=ecp, charge=charge, spin=spin)
+        self.lattice = np.asarray(lattice, dtype=np.float64)

@@ -30,3 +30,15 @@ class DeviceConstants:
                 for k, a in self._arrays.items()
             }
         return self._cache[key]
+
+
+_INDEX = {}
+
+
+def index_tensor(values, device):
+    """A host list of ints as an int64 tensor on `device`, copied once per
+    (values, device) and cached."""
+    key = (tuple(int(v) for v in values), torch.device(device))
+    if key not in _INDEX:
+        _INDEX[key] = torch.as_tensor(key[0], dtype=torch.int64, device=device)
+    return _INDEX[key]

@@ -20,8 +20,10 @@ from pyqmc_tpu.observables.accumulators import EnergyAccumulator as JEnergy
 
 from pyqmc_tpu_torch.configs import Geometry
 from pyqmc_tpu_torch.entry import h2o_setup
-from pyqmc_tpu_torch.method.vmc import make_vmc_block, vmc
+from pyqmc_tpu_torch.method.vmc import downselects, draw_streams, make_vmc_block, vmc
+from pyqmc_tpu_torch.models import orbitals as orbitals_mod
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
+from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 
 from .torch_parity import F64, h2o_pair, h2o_params, h2o_wf_objects, jax_rotations, walkers
 
@@ -77,3 +79,37 @@ def test_vmc_driver_on_cpu():
         assert 0.0 < d["acceptance"] <= 1.0
     assert final.positions.shape == (6, 8, 3)
     assert not torch.equal(final.positions, configs.positions)
+
+
+def test_streams_draw_u_sel_only_for_a_downselected_ecp():
+    """u_sel is drawn last and only where an ECP downselects, so the dense
+    ECP's chains draw gauss, unif and rot alone, and the downselected
+    ECP's share them."""
+    (_, _), (tmol, _) = h2o_pair()
+    dense = {"energy": EnergyAccumulator(tmol)}
+    picked = {"energy": EnergyAccumulator(tmol, ecp_acc=ECPAccumulator(tmol, nselect=4))}
+    assert not downselects(dense) and downselects(picked) and not downselects({})
+    a = draw_streams(torch.Generator().manual_seed(1), 2, 8, 3, TSTEP, "cpu", F64)
+    b = draw_streams(torch.Generator().manual_seed(1), 2, 8, 3, TSTEP, "cpu", F64,
+                     downselect=True)
+    assert set(a) == {"gauss", "unif", "rot"} and set(b) == set(a) | {"u_sel"}
+    assert b["u_sel"].shape == (2, 8, 3)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_plain_block_evaluates_orbitals_without_kernels(monkeypatch):
+    """make_vmc_block(fused=False) evaluates every orbital inside
+    plain_orbitals (no K3 or K6), fused=True outside it; the switch is
+    scoped to the block."""
+    seen = []
+    gate = orbitals_mod._value_kernel
+    monkeypatch.setattr(orbitals_mod, "_value_kernel",
+                        lambda X: seen.append(orbitals_mod._KERNELS.get()) or gate(X))
+    mol, wf, params, configs, acc = h2o_setup(nconf=2, device="cpu", dtype=torch.float32)
+    for fused in (False, True):
+        seen.clear()
+        block = make_vmc_block(wf, acc, configs.geometry, tstep=TSTEP, nsteps=1, fused=fused)
+        block(params, configs.positions, configs.wrap, torch.Generator().manual_seed(2))
+        assert seen and set(seen) == {fused}
+    assert orbitals_mod._KERNELS.get()

@@ -141,3 +141,94 @@ def bc_pair():
     twf = TMultiply(TSlater(tmol, (ca, cb)), TJastrow(tmol))
     tparams = params_from_numpy(jax.device_get(jparams), device="cpu", dtype=F64)
     return jmol, jwf, jparams, tmol, twf, tparams
+
+
+@functools.lru_cache(maxsize=None)
+def diamond_cells():
+    """The diamond-C primitive cell on both sides: (jax cell, fixture
+    arrays, port cell), the JAX side from tests/files, the port from its
+    own copy of the file."""
+    from .fixtures_pbc import load_cell
+
+    from pyqmc_tpu_torch.system.io import load_cell_npz
+
+    jcell, d = load_cell("diamond_primitive")
+    return jcell, d, load_cell_npz()[0]
+
+
+def kpoint_orbitals(nk):
+    """KPointOrbitals on both sides: gamma only (nk=1) or the 8 TRIM
+    k-points of the fixture, 4 occupied orbitals each per spin."""
+    from pyqmc_tpu.models.orbitals import KPointOrbitals as JKOrb
+
+    from pyqmc_tpu_torch.models.orbitals import KPointOrbitals as TKOrb
+
+    jcell, d, tcell = diamond_cells()
+    kpts = np.asarray(d["kpts"])[:nk]
+    blocks = [np.asarray(d["mo_coeff"][k])[:, :4] for k in range(nk)]
+    return (JKOrb(jcell, kpts, (blocks, blocks), img_tol=1e-4),
+            TKOrb(tcell, kpts, (blocks, blocks), img_tol=1e-4))
+
+
+@functools.lru_cache(maxsize=None)
+def gamma_wf_objects():
+    """Slater-Jastrow of the gamma-point primitive cell (8 electrons, 489
+    replicated-shell AOs, default periodic Jastrow basis) on both sides:
+    (jax wf, port wf)."""
+    from pyqmc_tpu.models.slater import DeterminantExpansion
+    from pyqmc_tpu.wftools import default_jastrow_basis as j_basis
+
+    from pyqmc_tpu_torch.models.slater import DeterminantExpansion as TExpansion
+    from pyqmc_tpu_torch.wftools import default_jastrow_basis
+
+    jcell, _, tcell = diamond_cells()
+    jorb, torb = kpoint_orbitals(1)
+    ja, jb = j_basis(jcell)
+    ta, tb = default_jastrow_basis(tcell)
+    jwf = JMultiply(JSlater(jcell, jorb, DeterminantExpansion.single(4, 4)),
+                    JJastrow(jcell, a_basis=ja, b_basis=jb))
+    twf = TMultiply(TSlater(tcell, orbitals=torb, expansion=TExpansion.single(4, 4)),
+                    TJastrow(tcell, a_basis=ta, b_basis=tb))
+    return jwf, twf
+
+
+@functools.lru_cache(maxsize=None)
+def gamma_jax_recompute():
+    """jit of the JAX gamma wavefunction's recompute, shared by the tests
+    (one compile per walker count)."""
+    return jax.jit(gamma_wf_objects()[0].recompute)
+
+
+def gamma_params(rng):
+    """Identical parameters of gamma_wf_objects() with perturbed Jastrow
+    coefficients: (jax params, port params)."""
+    jwf, _ = gamma_wf_objects()
+    jparams = jwf.make_params()
+    jparams["wf1"]["acoeff"] = jnp.asarray(rng.normal(scale=0.1, size=jparams["wf1"]["acoeff"].shape))
+    jparams["wf1"]["bcoeff"] = jparams["wf1"]["bcoeff"] + jnp.asarray(
+        rng.normal(scale=0.05, size=jparams["wf1"]["bcoeff"].shape))
+    return jparams, params_from_numpy(jax.device_get(jparams), device="cpu", dtype=F64)
+
+
+def cell_walkers(rng, lattice, nconf, nelec=8, lo=-0.3, hi=1.3):
+    """Positions (nconf, nelec, 3) at fractional coordinates in [lo, hi),
+    so some lie outside the cell and exercise the folds."""
+    return rng.uniform(lo, hi, size=(nconf, nelec, 3)) @ np.asarray(lattice)
+
+
+def jax_ecp_streams(key, nelec, nconf):
+    """The ECP draws of the JAX ECPAccumulator from `key`, as numpy:
+    rotations (nelec, nconf, 3, 3) from fold_in(key, 1000 + e) and the
+    downselection uniforms (nelec, nconf) from fold_in(fold_in(key, 1000 +
+    e), 777)."""
+    rot, u = jax_ecp_draws(key, nelec, nconf)
+    return np.array(rot), np.array(u)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def jax_ecp_draws(key, nelec, nconf):
+    keys = jax.vmap(lambda e: jax.random.fold_in(key, 1000 + e))(jnp.arange(nelec))
+    rot = jax.vmap(lambda k: random_rotations(k, (nconf,)))(keys)
+    u = jax.vmap(lambda k: jax.random.uniform(jax.random.fold_in(k, 777), (nconf, 1),
+                                              jnp.float64)[:, 0])(keys)
+    return rot, u
