@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths (pyqmc_tpu_torch, never jax), float32: on
+Drives the port's four paths (pyqmc_tpu_torch, never jax), float32: on
 ccECP/cc-pVDZ H2O Slater-Jastrow, 2048 walkers, with the energy
 accumulator and its nonlocal ECP quadrature every step, VMC in 50-step
 blocks and fixed-node DMC with T-moves (`rundmc`) in 10-step blocks; and
-periodic VMC on the 2x2x2 diamond-C supercell (`diamond_setup`, 500
-walkers, 64 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) in
-10-step blocks.
+on the 2x2x2 diamond-C supercell (`diamond_setup`, 500 walkers, 64
+electrons, k-point Slater-Jastrow, Ewald, downselected ECP) periodic VMC
+and periodic fixed-node DMC with T-moves, both in 10-step blocks.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -45,7 +45,9 @@ walkers, 64 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) in
      200 ECP evaluations; energies finite; the mean total energy of the
      last two blocks in (-17.2, -16.8) Ha and the acceptance in
      (0.5, 0.75). These windows catch a missing ECP (+1 Ha) or a
-     low-precision matmul bias; they are no bar for speed.
+     low-precision matmul bias; they are no bar for speed. The energy
+     must also repeat the chain's energy from before periodic DMC
+     (H2O_VMC_E) within 1e-4 Ha: the H2O draws do not change.
   4. one 50-step VMC block with the kernels and one with the plain
      versions, timed in turns (plain, kernel, kernel, plain)
   5. one kernel-path VMC block under torch.profiler: the device's busy
@@ -63,13 +65,18 @@ walkers, 64 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) in
      in (0.5, 2); acceptance above 0.9; the mean total energy of the last
      three blocks in (-17.6, -16.9) Ha and not above the warm-up VMC
      energy by more than 0.05 Ha. These windows catch a missing ECP, a
-     broken branching weight or a sign error in the T-moves.
+     broken branching weight or a sign error in the T-moves. The energy
+     must repeat H2O_DMC_E within 1e-4 Ha, as in phase 3.
   7. one 10-step DMC block with the kernels and one with the plain
      versions, timed in turns, then one kernel-path DMC block under
      torch.profiler as in phase 5
   8. the periodic kernels against their plain versions at the diamond
      supercell's shapes, float64 and float32, with the tolerances of phase
-     2: K7 (the periodic sweep; wrap counts too; the diamond's 32 x 32
+     2: K7 in both modes (the periodic sweep; wrap counts too, and in the
+     dmc mode r2p and r2a, at tstep 0.02 and at tstep 0.5, where half of
+     the walkers get unif = 0 so that their rejections are the node's;
+     the moves that wrapped and the node rejections are printed; the
+     diamond's 32 x 32
      orbital matrices reach path condition numbers of 1e6, so in float32
      the leaves other than the inverses are held to the plain version in
      float64 from the same inputs: over the walkers whose decisions agree
@@ -94,6 +101,26 @@ walkers, 64 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) in
      versions (make_vmc_block(fused=False): the plain sweep, the orbitals
      without K3 and K6), timed in turns,
      then one kernel block under torch.profiler as in phase 5
+  11. the periodic DMC path through the entry points: diamond_setup(500)
+     on the default device + rundmc(), 5 blocks x 10 steps at tstep 0.02
+     after 4 VMC warm-up blocks. Launch counts exactly: 40 K7-vmc (the
+     warm-up), 10 K7-dmc per block, none of K1, K2, K4, K5 (the T-move
+     sweep stays plain on a lattice, as in the JAX package), K6 and K3 as
+     each energy issues them (2 and 4) and K3 once per electron per
+     T-move sweep (the dense quadrature's ratios). Every energy and weight
+     finite; each block's mean weight within a factor of 2 of the weight
+     that its e_trial and its energy predict (`predicted_weights`: the
+     weights rise while e_trial lags the energy's fall from the warm-up
+     VMC's, beyond 2 in the JAX package's runs on this schedule, so the
+     fixed window (0.5, 2) of phase 6 would reject the reference itself);
+     acceptance above 0.9; the energy per primitive cell of the last 3
+     blocks within max(5 x combined SEM, 0.02 Ha) of the JAX package's CPU
+     reference on the same schedule (tools/diamond_dmc_jax_reference.py)
+     and not above the warm-up VMC energy per cell by more than 0.02 Ha
+  12. the T-move sweep of one step alone (CUDA events), then one periodic
+     10-step DMC block with the plain versions (make_dmc_block(fused=False))
+     and one with the kernels, timed in turns, then one kernel block under
+     torch.profiler as in phase 5
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -123,6 +150,22 @@ DIAMOND_NCELL = 8  # primitive cells in the 2x2x2 supercell
 # tools/diamond_jax_reference.py on the CPU, float64 (see PERF.md)
 DIAMOND_REF = {"e_cell": -10.182775221948061, "sem": 0.007186578622671951,
                "acceptance": 0.6213392469618056}  # 128 walkers, 36 x 10 steps after 4 blocks
+PBC_DMC_BIG_TSTEP = 0.5
+DIAMOND_DMC_WARMUP = 4  # rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
+DIAMOND_DMC_NBLOCKS = 5
+DIAMOND_DMC_NLAST = 3  # blocks averaged for the energy check
+# tools/diamond_dmc_jax_reference.py 32 6 5 4 3 3 on the CPU, float64, the
+# same schedule: 6 runs of 32 walkers, E/cell of the last 3 blocks, its
+# standard error over the runs, and each block's mean weight (geometric
+# mean over the runs; printed, not checked) (see PERF.md)
+DIAMOND_DMC_REF = {"e_cell": -10.910391419065506, "sem": 0.04079764409454735,
+                   "e_vmc_cell": -10.153945381096266, "acceptance": 0.9872368706597223,
+                   "weights": [1.4012, 2.8029, 4.4290, 5.6434, 6.4479]}
+# H2O energies of chip_smoke.py before periodic DMC, bit for bit on two
+# cards (phase 3: E of the last 2 VMC blocks; phase 6: E of the last 3
+# DMC blocks): the chains that must not move
+H2O_VMC_E = -16.987856
+H2O_DMC_E = -17.221627
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -280,14 +323,19 @@ def bound_ms(nbytes, ops):
 def path_conds(wf, params, pos, pos_new):
     """Per walker and spin, the largest condition number of the orbital
     matrices along a sweep from pos to pos_new (after move k the first k
-    electrons sit at their new positions), from float64 recomputes; and the
-    exact (float64) state at pos_new."""
+    electrons sit at their new positions), from float64 orbital values (the
+    value rows of the state's orbital cache); and the exact (float64) state
+    at pos_new."""
     p64 = cast_tree(params, torch.float64)
+    slater = wf.wfs[0]
+    nup = slater.nup
     conds = {"up": [], "dn": []}
     for k in range(pos.shape[1] + 1):
-        sl_mid = wf.recompute(p64, torch.cat([pos_new[:, :k], pos[:, k:]], dim=1).double())[0]
-        conds["up"].append(torch.linalg.cond(sl_mid.mog_up[:, :, 0, :]))
-        conds["dn"].append(torch.linalg.cond(sl_mid.mog_dn[:, :, 0, :]))
+        x = torch.cat([pos_new[:, :k], pos[:, k:]], dim=1).double()
+        mo_up, mo_dn = slater.orbitals.eval(p64["wf0"], x, 0)
+        conds["up"].append(torch.linalg.cond(mo_up[:, :nup]))
+        conds["dn"].append(torch.linalg.cond(mo_dn[:, nup:]))
+    sl_mid = wf.recompute(p64, pos_new.double())[0]
     return {k: torch.amax(torch.stack(v), dim=0).reshape(-1) for k, v in conds.items()}, sl_mid
 
 
@@ -296,8 +344,9 @@ def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=(), exact
     state) pairs, plus `extras`, per-walker tensors as (name, kernel,
     plain). Returns the measured numbers; raises on disagreement.
 
-    exact: the plain version's float64 output from the same inputs, or
-    None. Given it, the float32 leaves other than the inverses are held to
+    exact: the plain version's float64 output from the same inputs as
+    (positions, state, [each extra]), or None. Given it, the float32
+    leaves other than the inverses are held to
     it instead of to 1e-4 of the plain float32 version: over the walkers
     whose decisions agree in all three runs, each leaf's largest error
     (over 1 + |exact|) of the kernel must be at most 3 times the plain
@@ -341,10 +390,10 @@ def compare_sweeps(label, dtype, wf, params, pos, out_k, out_p, extras=(), exact
              (sl_k.mog_up, sl_p.mog_up), (sl_k.mog_dn, sl_p.mog_dn)]
     pairs += [(e[1], e[2]) for e in extras]
     if exact is not None:
-        (px, sx), wx = exact[:2], exact[2]
+        px, sx, extras_x = exact
         sl_x, j_x = sx
         xs = [px, sl_x.phase_up, sl_x.phase_dn, sl_x.logdet_up, sl_x.logdet_dn, j_x.u,
-              sl_x.mog_up, sl_x.mog_dn, wx]
+              sl_x.mog_up, sl_x.mog_dn] + list(extras_x)
         agree3 = agree & ~torch.any(torch.any(px != pos.double(), dim=-1) != moved_k, dim=1)
         res["walkers_agreeing_with_float64"] = int(torch.sum(agree3))
     nconf = pos.shape[0]
@@ -527,9 +576,13 @@ def ao_shell_ops(spec, mode):
 
 
 def kernel_bounds_pbc(wf, geometry, nconf, accepted, m_value_mo, m_gto_eval, itemsize=4):
-    """{kernel: (bytes, operations)} of one launch of K7, K3 and K6 at the
-    diamond shapes: every input read once, every output written once; K7's
-    Sherman-Morrison counted for this run's accepted moves."""
+    """{kernel: (bytes, operations)} of one launch of K7 (both modes), K3
+    and K6 at the diamond shapes: every input read once, every output
+    written once; K7's Sherman-Morrison counted for this run's accepted
+    moves, `accepted` {"pbc_sweep": n, "pbc_dmc_sweep": n}. The dmc mode
+    adds per move Umrigar's drift limit in place of the cap (twice), the
+    node test, and the squared displacement with its two sums; per walker
+    it writes r2p and r2a."""
     from pyqmc_tpu_torch.ops.gto_kernels import GTOTables
     from pyqmc_tpu_torch.ops.move_sweep_pbc import PBCTables
 
@@ -554,9 +607,13 @@ def kernel_bounds_pbc(wf, geometry, nconf, accepted, m_value_mo, m_gto_eval, ite
                                                          + 8 * nao) + 8 * n + 30)
     update = 2 * n * n + 3 * n * n + 4 * n + 6
     rows = 3 * nelec + nup * nup + ndn * ndn + 4 + 4 * nup * nup + 4 * ndn * ndn + 1
-    out["pbc_sweep"] = ((2 * rows + 3 * nelec + nelec + 3 * nelec + 1) * nconf * itemsize
-                        + nao * ntot * itemsize + ptab,
-                        int(nconf * nelec * move + accepted * update))
+    for name, dmc in (("pbc_sweep", False), ("pbc_dmc_sweep", True)):
+        # Umrigar's limit (15 per call, the cap 10), the node test, r2
+        # (|gauss + tau drift_old|^2: 11) and its two sums
+        extra = 2 * (15 - 10) + 1 + 11 + 2 if dmc else 0
+        out[name] = ((2 * rows + 3 * nelec + nelec + 3 * nelec + (3 if dmc else 1)) * nconf
+                     * itemsize + nao * ntot * itemsize + ptab,
+                     int(nconf * nelec * (move + extra) + accepted[name] * update))
     return out
 
 
@@ -614,7 +671,7 @@ def compare_pbc_kernels(dtype):
         p64 = cast_tree(params, torch.float64)
         px, wx, sx, _ = sweep_plain(p64, pos.double(), wrap, wf.recompute(p64, pos.double()),
                                     gauss.double(), unif.double())
-        exact = (px, sx, wx)
+        exact = (px, sx, [wx])
     torch.cuda.synchronize()
     res["pbc_sweep"] = compare_sweeps("periodic sweep", dtype, wf, params, pos, (pk, sk), (pp, sp),
                                       extras=[("wrap", wk.to(dtype), wp.to(dtype))], exact=exact)
@@ -624,6 +681,48 @@ def compare_pbc_kernels(dtype):
     if dtype == torch.float64:  # the same count of accepted moves (means summed in two orders)
         check(abs(float(acck) - float(accp)) * DIAMOND_NCONF < 0.5,
               f"f64 periodic acceptance {float(acck)} != {float(accp)}")
+
+    # K7's dmc mode, at DMC's tstep and at a large one where moves wrap and
+    # cross nodes often; there the first half of the walkers gets unif = 0,
+    # so that every move of theirs that is rejected is rejected by the node
+    for name, tau in (("pbc_dmc_sweep", DMC_TSTEP), ("pbc_dmc_sweep_big_tstep", PBC_DMC_BIG_TSTEP)):
+        dsweep = build_fused_sweep(wf, configs.geometry, tau, mode="dmc")
+        dst = draw_streams(gen, 1, nelec, DIAMOND_NCONF, tau, pos.device, dtype)
+        dgauss, dunif = dst["gauss"][0], dst["unif"][0].clone()
+        half = DIAMOND_NCONF // 2
+        if tau != DMC_TSTEP:
+            dunif[:, :half] = 0.0
+        dplain = all_plain(dsweep.plain)
+        pk, wk, sk, (acck, r2pk, r2ak) = dsweep.kernel(params, pos, wrap, state, dgauss, dunif)
+        pp, wp, sp, (accp, r2pp, r2ap) = dplain(params, pos, wrap, state, dgauss, dunif)
+        exact = None
+        if dtype == torch.float32:
+            p64 = cast_tree(params, torch.float64)
+            px, wx, sx, (_, r2px, r2ax) = dplain(p64, pos.double(), wrap,
+                                                 wf.recompute(p64, pos.double()),
+                                                 dgauss.double(), dunif.double())
+            exact = (px, sx, [wx, r2px, r2ax])
+        torch.cuda.synchronize()
+        res[name] = compare_sweeps(
+            f"periodic dmc sweep tstep={tau}", dtype, wf, params, pos, (pk, sk), (pp, sp),
+            extras=[("wrap", wk.to(dtype), wp.to(dtype)), ("r2p", r2pk, r2pp),
+                    ("r2a", r2ak, r2ap)], exact=exact)
+        moved = torch.any(pk != pos, dim=-1)
+        res[name].update({
+            "tstep": tau, "acceptance": float(acck) / nelec,
+            "moves_wrapped": int(torch.sum(torch.any(wk != wrap, dim=-1))),
+            "mean_tdamp": float(torch.mean(r2ak / r2pk))})
+        if tau != DMC_TSTEP:
+            res[name]["node_rejections_of_the_walkers_with_unif_0"] = int(
+                torch.sum(~moved[:half]))
+            check(res[name]["node_rejections_of_the_walkers_with_unif_0"] > 0
+                  and res[name]["moves_wrapped"] > 0,
+                  f"tstep {tau}: no node rejection or no wrap to compare: {json.dumps(res[name])}")
+        if dtype == torch.float64:
+            check(abs(float(acck) - float(accp)) * DIAMOND_NCONF < 0.5,
+                  f"f64 periodic dmc acceptance {float(acck)} != {float(accp)}")
+        if name == "pbc_dmc_sweep":
+            dmc_call = (dsweep, dplain, (params, pos, wrap, state, dgauss, dunif))
 
     # K6 at one kinetic-energy chunk: 32 electrons x 500 walkers
     chunk = max(1, 16384 // DIAMOND_NCONF)
@@ -661,16 +760,19 @@ def compare_pbc_kernels(dtype):
     if dtype == torch.float64:
         return res
 
+    dsweep, dplain, dargs = dmc_call
     calls = {"pbc_sweep": (lambda: sweep.kernel(params, pos, wrap, state, gauss, unif),
                            lambda: sweep_plain(params, pos, wrap, state, gauss, unif), 5, 1),
+             "pbc_dmc_sweep": (lambda: dsweep.kernel(*dargs), lambda: dplain(*dargs), 5, 1),
              "gto_eval": (lambda: ev2.kernel(X6), lambda: ev2.plain(X6), 10, 3),
              "value_mo": (lambda: vm.kernel_t(X3, R), lambda: vm.plain_t(X3, R), 10, 3),
              "value_mo_h2o": (lambda: hvm.kernel_t(hx, hC), lambda: hvm.plain_t(hx, hC), 20, 5)}
     for name, (kern, plain, nk, np_) in calls.items():
         res[name]["ms"] = cuda_ms(kern, nk)
         res[name]["plain_ms"] = cuda_ms(plain, np_)
-    bounds = kernel_bounds_pbc(wf, configs.geometry, DIAMOND_NCONF, res["pbc_sweep"]["accepted_moves"],
-                               X3.shape[0], X6.shape[0])
+    accepted = {k: res[k]["accepted_moves"] for k in ("pbc_sweep", "pbc_dmc_sweep")}
+    bounds = kernel_bounds_pbc(wf, configs.geometry, DIAMOND_NCONF, accepted, X3.shape[0],
+                               X6.shape[0])
     for name, (nbytes, ops) in bounds.items():
         ms, by = bound_ms(nbytes, ops)
         res[name].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
@@ -732,11 +834,31 @@ def report_trace(phase, what, nsteps, trace, untraced_s):
     return ours
 
 
-def timed_in_turns(fns, run):
-    """run(name, fn) for fn in plain, kernel, kernel, plain; returns mean
-    seconds of each and the four times."""
+def predicted_weights(blocks, e_trial0, tstep, nsteps):
+    """Each DMC block's mean weight as its trial energy and its energy
+    predict it. Per step the population's mean weight grows by exp(tstep
+    (E_T - E)), E being the weighted mean local energy that the block
+    records, and branching keeps it; so a block that starts at w holds w
+    exp(k tstep (E_T - E)) after its k-th step. E_T is e_trial0 (the
+    warm-up's mean local energy) in block 0 and the e_trial that rundmc
+    reports for the block before in each later block. The effective time
+    step (about 0.97 of tstep here) and the clipping of the branching
+    exponent are left out: on the JAX package's runs the prediction is
+    within 20% of the weights."""
+    out, logw, e_t = [], 0.0, e_trial0
+    for b in blocks:
+        g = tstep * (e_t - b["energytotal"])
+        out.append(float(np.exp(logw) * np.mean(np.exp(g * np.arange(1, nsteps + 1)))))
+        logw += nsteps * g
+        e_t = b["e_trial"]
+    return out
+
+
+def timed_in_turns(fns, run, order=("plain", "kernel", "kernel", "plain")):
+    """run(name, fn) for fn in `order`; returns mean seconds of each and
+    the times."""
     times = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
+    for name in order:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(name, fns[name])
@@ -760,7 +882,9 @@ def main():
     counters = {"vmc_sweep": move_sweep.LAUNCHES, "ecp_energy": ecp_energy.LAUNCHES,
                 "dmc_sweep": move_sweep.DMC_LAUNCHES, "tmove_sweep": tmove_sweep.LAUNCHES,
                 "value_mo": gto_kernels.VALUE_MO_LAUNCHES,
-                "gto_eval": gto_kernels.EVAL_GTO2_LAUNCHES, "pbc_sweep": move_sweep_pbc.LAUNCHES}
+                "gto_eval": gto_kernels.EVAL_GTO2_LAUNCHES, "pbc_sweep": move_sweep_pbc.LAUNCHES,
+                "pbc_dmc_sweep": move_sweep_pbc.DMC_LAUNCHES}
+    periodic = ("value_mo", "gto_eval", "pbc_sweep", "pbc_dmc_sweep")
     h2o_kernels = ("vmc_sweep", "ecp_energy", "dmc_sweep", "tmove_sweep")
 
     def reset_counts():
@@ -781,6 +905,7 @@ def main():
                 if "Compiling entry function" in line or "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip().replace("ptxas info    : ", ""), flush=True)
 
+    print(f"phase 2 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 2: kernels against their plain versions (which evaluate their
     # MO values without K3; the four kernels call no orbital evaluator)
     with plain_orbitals():
@@ -789,6 +914,7 @@ def main():
         r32 = compare_kernels(torch.float32)
         print("phase 2 float32: " + json.dumps(r32), flush=True)
 
+    print(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 3: the VMC path through the entry points
     from pyqmc_tpu_torch.entry import h2o_setup
     from pyqmc_tpu_torch.method.vmc import vmc
@@ -808,7 +934,7 @@ def main():
               f"host time {b['block time']:.3f} s",
               flush=True)
     check(launches == {"vmc_sweep": 4 * NSTEPS, "ecp_energy": 4 * NSTEPS, "dmc_sweep": 0,
-                       "tmove_sweep": 0, "value_mo": 0, "gto_eval": 0, "pbc_sweep": 0},
+                       "tmove_sweep": 0, **{k: 0 for k in periodic}},
           f"kernel launches on the VMC path: {launches}")
     for b in blocks:
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
@@ -818,8 +944,11 @@ def main():
     check(-17.2 < e_last < -16.8, f"energy {e_last} outside (-17.2, -16.8) Ha")
     check(0.5 < a_last < 0.75, f"acceptance {a_last} outside (0.5, 0.75)")
     print(f"phase 3: launches {launches}, E(last 2 blocks)={e_last:.6f} Ha, acc={a_last:.4f}, "
-          f"{t_main:.2f} s for 4 blocks", flush=True)
+          f"{t_main:.2f} s for 4 blocks; before periodic DMC: E={H2O_VMC_E:.6f} Ha", flush=True)
+    check(abs(e_last - H2O_VMC_E) <= 1e-4, f"the H2O VMC chain moved: E {e_last} against "
+          f"{H2O_VMC_E} before periodic DMC")
 
+    print(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 4: one VMC block with the kernels, one with the plain versions
     from pyqmc_tpu_torch.method.vmc import make_vmc_block
     from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
@@ -839,10 +968,12 @@ def main():
           f"walker-steps/s), plain {tp:.4f} s ({NCONF * NSTEPS / tp:.1f} walker-steps/s); "
           f"runs {json.dumps(times)}", flush=True)
 
+    print(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 5: one traced kernel VMC block; the device's busy time and idle share
     ours_vmc = report_trace("phase 5", "kernel VMC block", NSTEPS,
                             traced(lambda: vmc_block("traced", fns["kernel"])), tk)
 
+    print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 6: the DMC path through the entry points, on the default device
     from pyqmc_tpu_torch.method.dmc import make_dmc_block, rundmc
 
@@ -867,7 +998,7 @@ def main():
               # warm-up steps, the energy that sets e_trial, and per block its
               # first energy plus one per step
               "ecp_energy": nwarm + 1 + DMC_NBLOCKS * (DMC_NSTEPS + 1),
-              "value_mo": 0, "gto_eval": 0, "pbc_sweep": 0}
+              **{k: 0 for k in periodic}}
     check(dlaunches == expect, f"kernel launches on the DMC path: {dlaunches}, expected {expect}")
     for b in dblocks:
         check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
@@ -883,9 +1014,12 @@ def main():
     check(-17.6 < e_dmc < -16.9, f"DMC energy {e_dmc} outside (-17.6, -16.9) Ha")
     check(e_dmc < e_warm + 0.05, f"DMC energy {e_dmc} above the warm-up VMC energy {e_warm}")
     print(f"phase 6: launches {dlaunches}, E(last 3 blocks)={e_dmc:.6f} Ha, warm-up VMC "
-          f"E={e_warm:.6f} Ha, {t_dmc:.2f} s for {DMC_WARMUP} warm-up + {DMC_NBLOCKS} DMC blocks",
-          flush=True)
+          f"E={e_warm:.6f} Ha, {t_dmc:.2f} s for {DMC_WARMUP} warm-up + {DMC_NBLOCKS} DMC blocks; "
+          f"before periodic DMC: E={H2O_DMC_E:.6f} Ha", flush=True)
+    check(abs(e_dmc - H2O_DMC_E) <= 1e-4, f"the H2O DMC chain moved: E {e_dmc} against "
+          f"{H2O_DMC_E} before periodic DMC")
 
+    print(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 7: one DMC block with the kernels, one with the plain versions, one traced
     acc_plain = EnergyAccumulator(mol, ecp_acc=ECPAccumulator(mol, fused=False))
     dfns = {"kernel": make_dmc_block(wf, acc["energy"], dconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
@@ -905,7 +1039,7 @@ def main():
     dtk, dtp, dtimes = timed_in_turns(dfns, dmc_block)
     check(read_counts() == {
         "vmc_sweep": 0, "dmc_sweep": 2 * DMC_NSTEPS, "tmove_sweep": 2 * DMC_NSTEPS,
-        "ecp_energy": 2 * (DMC_NSTEPS + 1), "value_mo": 0, "gto_eval": 0, "pbc_sweep": 0},
+        "ecp_energy": 2 * (DMC_NSTEPS + 1), **{k: 0 for k in periodic}},
           f"the plain DMC blocks launched kernels: {read_counts()}")
     print(f"phase 7: {DMC_NSTEPS}-step DMC block with kernels {dtk:.4f} s "
           f"({NCONF * DMC_NSTEPS / dtk:.1f} walker-steps/s), plain {dtp:.4f} s "
@@ -914,12 +1048,14 @@ def main():
     ours_dmc = report_trace("phase 7", "kernel DMC block", DMC_NSTEPS,
                             traced(lambda: dmc_block("traced", dfns["kernel"])), dtk)
 
+    print(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 8: the periodic kernels against their plain versions
     p64 = compare_pbc_kernels(torch.float64)
     print("phase 8 float64: " + json.dumps(p64), flush=True)
     p32 = compare_pbc_kernels(torch.float32)
     print("phase 8 float32: " + json.dumps(p32), flush=True)
 
+    print(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 9: the periodic VMC path through the entry points, default device
     from pyqmc_tpu_torch.entry import diamond_setup
 
@@ -973,6 +1109,7 @@ def main():
     check(abs(a_pbc - ref["acceptance"]) <= 0.05,
           f"periodic acceptance {a_pbc} off the JAX reference's {ref['acceptance']}")
 
+    print(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 10: a kernel and a plain periodic block in turns, then one traced
     pfns = {"kernel": inner,
             "plain": make_vmc_block(wf, acc, configs.geometry, TSTEP, DIAMOND_NSTEPS, fused=False)}
@@ -992,10 +1129,149 @@ def main():
           flush=True)
     ours_pbc = report_trace("phase 10", "kernel periodic block", DIAMOND_NSTEPS,
                             traced(lambda: pbc_block("traced", inner)), ptk)
+
+    print(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 11: the periodic DMC path through the entry points, default device
+    sup, wf, params, configs, acc = diamond_setup(DIAMOND_NCONF, dtype=torch.float32)
+    check(configs.positions.device.type == "cuda", "diamond_setup's default device is not the GPU")
+    nelec = sum(sup.nelec)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    reset_counts()
+    t0 = time.perf_counter()
+    qblocks, qconfigs, qweights = rundmc(
+        wf, params, configs, nblocks=DIAMOND_DMC_NBLOCKS, nsteps_per_block=DMC_NSTEPS,
+        tstep=DMC_TSTEP, energy_acc=acc["energy"], generator=gen,
+        warmup_vmc_blocks=DIAMOND_DMC_WARMUP)
+    torch.cuda.synchronize()
+    t_qdmc = time.perf_counter() - t0
+    qlaunches = read_counts()
+    # an energy evaluation launches K6 once per kinetic chunk and K3 once
+    # per ECP chunk (per_step of phase 9); the T-move sweep evaluates each
+    # electron's dense quadrature with one K3 launch; per DMC block: the
+    # first energy, then per step a T-move sweep, a K7-dmc sweep, an energy
+    nwarm = DIAMOND_DMC_WARMUP * 10  # rundmc's warm-up blocks have 10 steps
+    per_block = {"pbc_dmc_sweep": DMC_NSTEPS,
+                 "gto_eval": (DMC_NSTEPS + 1) * per_step["gto_eval"],
+                 "value_mo": (DMC_NSTEPS + 1) * per_step["value_mo"] + DMC_NSTEPS * nelec}
+    qexpect = {k: 0 for k in counters}
+    qexpect.update({
+        "pbc_sweep": nwarm,
+        "pbc_dmc_sweep": DIAMOND_DMC_NBLOCKS * per_block["pbc_dmc_sweep"],
+        # warm-up steps, the energy that sets e_trial, the blocks
+        "gto_eval": (nwarm + 1) * per_step["gto_eval"]
+        + DIAMOND_DMC_NBLOCKS * per_block["gto_eval"],
+        "value_mo": (nwarm + 1) * per_step["value_mo"]
+        + DIAMOND_DMC_NBLOCKS * per_block["value_mo"]})
+    for b in qblocks:
+        print(f"phase 11 block {b['block']}: E/cell={b['energytotal'] / DIAMOND_NCELL:.6f} "
+              f"ecp/cell={b['energyecp'] / DIAMOND_NCELL:.6f} w={b['weight']:.5f} "
+              f"e_trial/cell={b['e_trial'] / DIAMOND_NCELL:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    check(qlaunches == qexpect,
+          f"kernel launches on the periodic DMC path: {qlaunches}, expected {qexpect}")
+    qref = DIAMOND_DMC_REF
+    # The block mean weight follows e_trial's lag behind the energy, which
+    # falls by 0.5-1 Ha per cell from the warm-up VMC's: the JAX package's
+    # runs on this schedule reach block mean weights of 3.4-11.6. So
+    # each block's weight is held, within a factor of 2, to the weight that
+    # its e_trial and its energy predict (predicted_weights).
+    e_qwarm_total = 2 * qblocks[0]["e_est"] - qblocks[0]["energytotal"]
+    w_pred = predicted_weights(qblocks, e_qwarm_total, DMC_TSTEP, DMC_NSTEPS)
+    for b, wp in zip(qblocks, w_pred):
+        check(all(np.isfinite(v) for v in b.values()),
+              f"non-finite value in periodic DMC block {b}")
+        check(0.5 < b["weight"] / wp < 2.0,
+              f"periodic block {b['block']} mean weight {b['weight']} not within a factor 2 of "
+              f"the {wp} that its e_trial and energy predict")
+        check(b["acceptance"] > 0.9, f"periodic DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(qweights))) and bool(torch.all(qweights > 0)),
+          "final periodic weights are not finite and positive")
+    check(qconfigs.positions.shape == (DIAMOND_NCONF, nelec, 3),
+          "final periodic walkers have the wrong shape")
+    q_cells = np.array([b["energytotal"] / DIAMOND_NCELL for b in qblocks[-DIAMOND_DMC_NLAST:]])
+    e_q = float(np.mean(q_cells))
+    a_q = float(np.mean([b["acceptance"] for b in qblocks[-DIAMOND_DMC_NLAST:]]))
+    sem_q = float(np.std(q_cells, ddof=1) / np.sqrt(len(q_cells)))
+    e_qwarm = e_qwarm_total / DIAMOND_NCELL
+    qwindow = max(5 * float(np.hypot(sem_q, qref["sem"])), 0.02)
+    print(f"phase 11: launches {qlaunches} ({json.dumps(per_block)} per block), "
+          f"E/cell(last {DIAMOND_DMC_NLAST} blocks)={e_q:.6f} +- {sem_q:.6f} Ha, warm-up VMC "
+          f"E/cell={e_qwarm:.6f} Ha, acc={a_q:.4f}, block weights "
+          f"{[round(b['weight'], 4) for b in qblocks]}, predicted {[round(w, 4) for w in w_pred]}; "
+          f"JAX CPU reference {qref['e_cell']:.6f} +- {qref['sem']:.6f} Ha (warm-up VMC "
+          f"{qref['e_vmc_cell']:.6f}, acc {qref['acceptance']:.4f}, block weights "
+          f"{[round(w, 4) for w in qref['weights']]}); "
+          f"window {qwindow:.6f} Ha; {t_qdmc:.2f} s for {DIAMOND_DMC_WARMUP} warm-up + "
+          f"{DIAMOND_DMC_NBLOCKS} DMC blocks", flush=True)
+    check(abs(e_q - qref["e_cell"]) <= qwindow,
+          f"periodic DMC E/cell {e_q} off the JAX reference {qref['e_cell']} by more than "
+          f"{qwindow}")
+    check(e_q < e_qwarm + 0.02,
+          f"periodic DMC E/cell {e_q} above the warm-up VMC energy {e_qwarm} by more than 0.02 Ha")
+
+    print(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 12: a kernel and a plain periodic DMC block in turns, then one traced
+    qlast = qblocks[-1]
+    qfns = {"kernel": make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
+                                     fused=True)[0],
+            "plain": make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
+                                    fused=False)[0]}
+    walk = {"pos": qconfigs.positions, "wrap": qconfigs.wrap, "w": qweights}
+
+    def qdmc_block(name, fn):
+        walk["pos"], walk["wrap"], walk["w"], avg = fn(
+            params, walk["pos"], walk["wrap"], walk["w"], gen, qlast["e_trial"], qlast["e_est"],
+            0.5 * DIAMOND_NCELL)  # esigma: 0.5 Ha per primitive cell
+        check(bool(torch.isfinite(avg["energytotal"])),
+              f"non-finite {name} periodic DMC block energy")
+
+    # the T-move sweep of one step alone (plain PyTorch with a K3 launch
+    # per electron for its dense quadrature's ratios), CUDA events
+    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams
+    from pyqmc_tpu_torch.ops.tmove_sweep import tmove_sweep_plain
+
+    qst = draw_dmc_streams(gen, 1, nelec, DIAMOND_NCONF, DMC_TSTEP, walk["pos"].device,
+                           torch.float32, downselect=True)
+    qstate = wf.recompute(params, walk["pos"])
+    k3 = counters["value_mo"].n
+    tmove_ms = cuda_ms(lambda: tmove_sweep_plain(
+        wf, qconfigs.geometry, acc["energy"].ecp_acc, DMC_TSTEP, params, walk["pos"],
+        walk["wrap"], qstate, qst["tqrot"][0], qst["u_sel"][0], qst["u_acc"][0]), 1)
+    check(counters["value_mo"].n - k3 == 2 * nelec,
+          f"the T-move sweep launched K3 {counters['value_mo'].n - k3} times in 2 sweeps")
+    # K3 at the T-move quadrature's size (one electron's 96 points per walker)
+    orb = wf.wfs[0].orbitals
+    aux, _ = acc["energy"].ecp_acc.quadrature_geometry(walk["pos"][:, 0], qst["tqrot"][0][0])
+    Xq, _ = orb._fold(aux.reshape(-1, 3))
+    Rq = orb._folded_coeff(params["wf0"], torch.float32)
+    k3_ms = cuda_ms(lambda: orb._value_mo.kernel_t(Xq, Rq), 10)
+    k3_bytes, k3_ops = kernel_bounds_pbc(wf, qconfigs.geometry, DIAMOND_NCONF,
+                                         {"pbc_sweep": 0, "pbc_dmc_sweep": 0}, Xq.shape[0],
+                                         1)["value_mo"]
+    k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
+    print(f"phase 12: the T-move sweep alone {tmove_ms:.2f} ms ({nelec} K3 launches); K3 at its "
+          f"{Xq.shape[0]} points {k3_ms:.4f} ms (CUDA events), bound {k3_bound:.4f} ms ({k3_by})",
+          flush=True)
+    reset_counts()
+    qtk, qtp, qtimes = timed_in_turns(qfns, qdmc_block, order=("plain", "kernel"))
+    check(read_counts() == {k: per_block.get(k, 0) for k in counters},
+          f"the periodic DMC blocks' launches: {read_counts()} (the plain blocks must launch none)")
+    print(f"phase 12: {DMC_NSTEPS}-step periodic DMC block with kernels {qtk:.4f} s "
+          f"({DIAMOND_NCONF * DMC_NSTEPS / qtk:.1f} walker-steps/s), plain {qtp:.4f} s "
+          f"({DIAMOND_NCONF * DMC_NSTEPS / qtp:.1f} walker-steps/s); runs {json.dumps(qtimes)}",
+          flush=True)
+    ours_qdmc = report_trace("phase 12", "kernel periodic DMC block", DMC_NSTEPS,
+                             traced(lambda: qdmc_block("traced", qfns["kernel"])), qtk)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
         found = [ours[n][1] for n in ours if n.split("<")[0] in names]
+        return sum(found) if found else None
+
+    def pbc_device_ms(ours, dmc):
+        """The periodic sweep's instance of one mode (template <T, DMC>)."""
+        found = [v[1] for n, v in ours.items()
+                 if n.startswith("pbc_sweep_kernel<") and n.rstrip(">").endswith(str(dmc).lower())]
         return sum(found) if found else None
 
     replaces = {"vmc_sweep": "pyqmc_tpu/ops/move_pallas.py:278",
@@ -1004,7 +1280,8 @@ def main():
                 "tmove_sweep": "pyqmc_tpu/ops/move_pallas.py:727",
                 "value_mo": "pyqmc_tpu/ops/gto_pallas.py:184",
                 "gto_eval": "pyqmc_tpu/ops/gto_pallas.py:29",
-                "pbc_sweep": "pyqmc_tpu/ops/move_pallas_pbc.py:206"}
+                "pbc_sweep": "pyqmc_tpu/ops/move_pallas_pbc.py:206",
+                "pbc_dmc_sweep": "pyqmc_tpu/ops/move_pallas_pbc.py:206 (dmc)"}
     kernels = []
     for name in h2o_kernels:
         on_vmc = name in ("vmc_sweep", "ecp_energy")
@@ -1020,18 +1297,30 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": device_ms(ours_vmc if on_vmc else ours_dmc, *trace_names)})
-    for name, trace_name in (("value_mo", "value_mo_kernel"), ("gto_eval", "gto_eval_kernel"),
-                             ("pbc_sweep", "pbc_sweep_kernel")):
-        check(plaunches[name] > 0, f"{name} was not launched on the periodic path")
+    for name in periodic:
+        main_path = qlaunches if name == "pbc_dmc_sweep" else plaunches
+        check(main_path[name] > 0 and qlaunches[name] > 0,
+              f"{name} was not launched on its periodic path")
         r = p32[name]
         entry = {
-            "name": name, "route": "cuda", "source": f"pyqmc_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": plaunches[name],
+            "name": name, "route": "cuda",
+            "source": f"pyqmc_tpu_torch/csrc/{'pbc_sweep' if name == 'pbc_dmc_sweep' else name}.cu",
+            "replaces": replaces[name],
+            "launches": main_path[name],
+            "launches_periodic_dmc_path": qlaunches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "device_ms": device_ms(ours_pbc, trace_name)}
-        if name == "pbc_sweep":
-            entry["mode"] = "vmc only"
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+        if name in ("pbc_sweep", "pbc_dmc_sweep"):
+            entry["mode"] = "dmc" if name == "pbc_dmc_sweep" else "vmc"
+            entry["device_ms"] = pbc_device_ms(ours_qdmc if name == "pbc_dmc_sweep" else ours_pbc,
+                                               name == "pbc_dmc_sweep")
+            if name == "pbc_dmc_sweep":
+                big = p64["pbc_dmc_sweep_big_tstep"]
+                entry.update({"max_abs_err_float64": p64[name]["max_abs_err"],
+                              "max_abs_err_float64_big_tstep": big["max_abs_err"]})
+        else:
+            entry["device_ms"] = device_ms(ours_pbc, f"{name}_kernel")
+            entry["device_ms_periodic_dmc"] = device_ms(ours_qdmc, f"{name}_kernel")
         if name == "value_mo":
             h = p32["value_mo_h2o"]
             entry.update({"h2o_ms": h["ms"], "h2o_plain_ms": h["plain_ms"],

@@ -59,7 +59,8 @@ def wrap_from_numpy(wrap, device=None) -> torch.Tensor:
 
 def dmc_streams_from_numpy(streams, device=None, dtype=None):
     """One DMC block's random streams (method/dmc.py: gauss, unif, erot,
-    erot0, tqrot, u_sel, u_acc, and u_branch for the comb) from numpy
+    erot0, tqrot, u_sel, u_acc, esel and esel0 where the ECP downselects,
+    and u_branch for the comb) from numpy
     arrays, so that the port consumes the numbers another implementation
     drew."""
     return {k: _t(v, device, dtype) for k, v in streams.items()}

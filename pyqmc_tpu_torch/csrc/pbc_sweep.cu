@@ -1,10 +1,11 @@
 // Kernel 7: the Metropolis sweep of a periodic Slater-Jastrow wavefunction
 // with real (TRIM) k-point orbitals, one warp per walker.
 //
-// Replaces pyqmc_tpu/ops/move_pallas_pbc.py:build_fused_sweep_pbc. A
-// template over `bool DMC` as sweep_kernel.cuh is; only the vmc mode is
-// instantiated and bound here (pyqmc_tpu_torch/ops/move_sweep_pbc.py). Per
-// electron move, with the algebra of the Pallas kernel:
+// Replaces pyqmc_tpu/ops/move_pallas_pbc.py:build_fused_sweep_pbc in both
+// of its modes. A template over `bool DMC` as sweep_kernel.cuh is; both
+// instances are built and bound here (pq_pbc_sweep_*, the vmc mode, and
+// pq_pbc_dmc_sweep_*, the dmc mode; pyqmc_tpu_torch/ops/move_sweep_pbc.py).
+// Per electron move, with the algebra of the Pallas kernel:
 //   drift at the current position from the cached orbital row and the
 //   inverse column, plus the Jastrow gradient; the proposal on the
 //   pre-drawn gauss, folded into the supercell (frac -> floor -> back) with
@@ -15,6 +16,18 @@
 //   Jastrow minimal image by rounding with the supercell constants;
 //   acceptance |ratio|^2 t_prob > unif; the Sherman-Morrison update of the
 //   inverse, phase, log|det|, the orbital cache row and U.
+// The dmc mode differs where the Pallas kernel branches on `mode`:
+//   drift limiting  Umrigar's, v * (sqrt(1 + 2 taueff) - 1) / taueff with
+//                   taueff = max(|v|^2 tau, 1e-12), at the old and the new
+//                   position (move_pallas_pbc.py:415-423; limdrift in
+//                   sweep_kernel.cuh);
+//   fixed node      a move with ratio <= 0 is rejected (:505-507); the
+//                   ratio is a butterfly sum times exp(du), the same bits
+//                   on every lane, and lane 0's decision is broadcast;
+//   outputs         per walker, r2p, the sum over every proposal of
+//                   |gauss + tau drift_old|^2 with the limited old drift,
+//                   and r2a, the same sum over the accepted moves only
+//                   (:510-516, :583-588), in rows 1 and 2 of `sums`.
 //
 // Design. One warp is one walker; lane j owns orbital column j of the
 // moving electron's spin (at most 32 per spin), so its four accumulators
@@ -443,6 +456,27 @@ int pq_pbc_sweep_f64(const void* state_in, void* state_out, const void* gauss, c
       (const double*)state_in, (double*)state_out, (const double*)gauss, (const double*)unif,
       (double*)wrapd, (double*)sums, (const double*)R, (const double*)tab, ntab,
       (const int*)meta, nmeta, nconf, nrows, tstep, drift_cutoff, nao, ntot, nelec,
+      (cudaStream_t)stream);
+}
+
+int pq_pbc_dmc_sweep_f32(const void* state_in, void* state_out, const void* gauss,
+                         const void* unif, void* wrapd, void* sums, const void* R, const void* tab,
+                         int ntab, const void* meta, int nmeta, int nconf, int nrows, int nao,
+                         int ntot, int nelec, double tstep, void* stream) {
+  return pq::launch_pbc_sweep<float, true>(
+      (const float*)state_in, (float*)state_out, (const float*)gauss, (const float*)unif,
+      (float*)wrapd, (float*)sums, (const float*)R, (const float*)tab, ntab, (const int*)meta,
+      nmeta, nconf, nrows, tstep, 0.0, nao, ntot, nelec, (cudaStream_t)stream);
+}
+
+int pq_pbc_dmc_sweep_f64(const void* state_in, void* state_out, const void* gauss,
+                         const void* unif, void* wrapd, void* sums, const void* R, const void* tab,
+                         int ntab, const void* meta, int nmeta, int nconf, int nrows, int nao,
+                         int ntot, int nelec, double tstep, void* stream) {
+  return pq::launch_pbc_sweep<double, true>(
+      (const double*)state_in, (double*)state_out, (const double*)gauss, (const double*)unif,
+      (double*)wrapd, (double*)sums, (const double*)R, (const double*)tab, ntab,
+      (const int*)meta, nmeta, nconf, nrows, tstep, 0.0, nao, ntot, nelec,
       (cudaStream_t)stream);
 }
 

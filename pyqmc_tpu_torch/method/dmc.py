@@ -17,11 +17,19 @@ torch.Generator, in one batch per kind (`draw_dmc_streams`):
   erot  (nsteps, nelec, nconf, 3, 3), each step's ECP-energy rotations;
   erot0 (nelec, nconf, 3, 3), the rotations of the block's first energy;
   tqrot (nsteps, nelec, nconf, 3, 3), u_sel and u_acc (nsteps, nelec,
-        nconf): the T-move quadrature rotations and uniforms.
+        nconf): the T-move quadrature rotations and uniforms; u_sel picks
+        the T-move's point among the dense quadrature's;
+  esel  (nsteps, nelec, nconf), each step's ECP-energy downselection
+        uniforms (observables/ecp.py:systematic_downselect);
+  esel0 (nelec, nconf), those of the block's first energy.
 
-A `streams` dict with those keys replaces the draws, so tests can feed the
-port and the JAX package the same numbers. The comb takes its one uniform,
-`u_branch`, as an argument.
+esel and esel0 are drawn last, and only where an ECP of the energy or of a
+further accumulator evaluates a subset of its points (a periodic solid),
+so other paths draw what they did before. They are the energy's selection
+stream and have nothing to do with the T-moves' u_sel: the T-move
+quadrature is always dense. A `streams` dict with those keys replaces the
+draws, so tests can feed the port and the JAX package the same numbers.
+The comb takes its one uniform, `u_branch`, as an argument.
 
 `rundmc` is the pipelined path of the JAX package's `rundmc`: propagation, population
 control and branching keep their state on the device, and a block's
@@ -46,6 +54,7 @@ from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, limdrift_umrigar, sweep_plain
 from ..ops.tmove_sweep import build_fused_tmove_sweep, tmove_sweep_plain
+from .vmc import downselects
 from .vmc import vmc as vmc_run
 
 __all__ = ["limdrift_umrigar", "compute_S", "branch", "draw_dmc_streams", "make_dmc_block",
@@ -78,8 +87,10 @@ def branch(positions, wrap, weights, u_branch):
     return positions[idx], wrap[idx], torch.ones_like(weights) * torch.mean(weights)
 
 
-def draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, tmoves=True):
-    """One block's random numbers (see the module docstring)."""
+def draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, tmoves=True,
+                     downselect=False):
+    """One block's random numbers (see the module docstring); esel and
+    esel0 only with `downselect`."""
     gdev = generator.device
 
     def normal(*shape):
@@ -101,6 +112,9 @@ def draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, tmov
         streams["tqrot"] = rotations(nsteps, nelec, nconf)
         streams["u_sel"] = uniform(nsteps, nelec, nconf).to(device)
         streams["u_acc"] = uniform(nsteps, nelec, nconf).to(device)
+    if downselect:
+        streams["esel"] = uniform(nsteps, nelec, nconf).to(device)
+        streams["esel0"] = uniform(nelec, nconf).to(device)
     return streams
 
 
@@ -142,6 +156,7 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
         if tmove is None:
             tmove = functools.partial(tmove_sweep_plain, wf, geometry, ecp_acc, tstep)
     orbitals = contextlib.nullcontext if fused else plain_orbitals
+    downselect = downselects({"energy": energy_acc, **accumulators})
 
     def block(params, positions, wrap, weights, generator, e_trial, e_est, esigma,
               streams=None):
@@ -153,9 +168,10 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
         nconf = positions.shape[0]
         if streams is None:
             streams = draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, positions.device,
-                                       positions.dtype, tmoves=do_tmoves)
+                                       positions.dtype, tmoves=do_tmoves, downselect=downselect)
+        esel = streams.get("esel")
         state = wf.recompute(params, positions)
-        edat0 = energy_acc(wf, params, state, positions, streams["erot0"])
+        edat0 = energy_acc(wf, params, state, positions, streams["erot0"], streams.get("esel0"))
         S_old = compute_S(e_trial, e_est, esigma, edat0["total"], edat0["grad2"], tstep, nelec)
         records = []
         for step in range(nsteps):
@@ -165,7 +181,8 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
                                                streams["u_acc"][step])
             positions, wrap, state, (acc, r2p, r2a) = sweep(
                 params, positions, wrap, state, streams["gauss"][step], streams["unif"][step])
-            edat = energy_acc(wf, params, state, positions, streams["erot"][step])
+            u_sel = None if esel is None else esel[step]
+            edat = energy_acc(wf, params, state, positions, streams["erot"][step], u_sel)
             S_new = compute_S(e_trial, e_est, esigma, edat["total"], edat["grad2"], tstep, nelec)
             # effective time step: the accepted share of the proposed
             # squared displacement
@@ -177,7 +194,7 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
                 out[f"energy{k}"] = _weighted_mean(v, weights)
             for name, a in accumulators.items():
                 # weight-averaged mixed estimator
-                for k, v in a(wf, params, state, positions, streams["erot"][step]).items():
+                for k, v in a(wf, params, state, positions, streams["erot"][step], u_sel).items():
                     out[f"{name}{k}"] = _weighted_mean(v, weights)
             out["weight"] = torch.mean(weights)
             records.append(out)
@@ -215,7 +232,9 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
 
     A VMC warm-up of `warmup_vmc_blocks` blocks (10 steps, tstep 0.5)
     equilibrates the walkers; the local energies after it give the first
-    e_est, e_trial and the clipping width esigma. Then, per block: the
+    e_est, e_trial and the clipping width esigma (their rotations, and
+    where the ECP downselects their selection uniforms, are drawn from
+    `generator` after the warm-up's). Then, per block: the
     propagation block, the population-control update and, every
     `branchtime` blocks, the comb. Each block dict carries the block's
     averages plus "e_trial", "e_est", "block" and "block time" (the host
@@ -235,8 +254,12 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
     positions, wrap = configs.positions, configs.wrap
     quat = torch.randn((nelec, nconf, 4), generator=generator, device=generator.device,
                        dtype=dtype)
+    u_sel = None
+    if downselects({"energy": energy_acc}):
+        u_sel = torch.rand((nelec, nconf), generator=generator, device=generator.device,
+                           dtype=dtype).to(device)
     eloc = energy_acc(wf, params, wf.recompute(params, positions), positions,
-                      rotations_from_quaternions(quat).to(device))["total"]
+                      rotations_from_quaternions(quat).to(device), u_sel)["total"]
     e_est = torch.mean(eloc)
     esigma = torch.std(eloc, unbiased=False)
     e_trial = e_est

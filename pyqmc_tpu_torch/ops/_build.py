@@ -56,6 +56,9 @@ _KERNELS = {
     # nconf, nrows, nao, ntot, nelec, tstep, drift_cutoff, stream
     "pq_pbc_sweep": ("pbc_sweep.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                                       _I, _D, _D, _P]),
+    # as pq_pbc_sweep without drift_cutoff; sums holds nacc, r2p, r2a
+    "pq_pbc_dmc_sweep": ("pbc_sweep.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                          _I, _I, _D, _P]),
 }
 
 

@@ -3,7 +3,21 @@ with real (TRIM) k-point orbitals, hand-written in CUDA
 (csrc/pbc_sweep.cu), with its plain PyTorch version beside it.
 
 Counterpart of pyqmc_tpu/ops/move_pallas_pbc.py:build_fused_sweep_pbc in
-its vmc mode. Per electron move, the kernel folds the proposal into the
+both of its modes, two instances of one kernel template, each with its own
+C symbol and launch counter:
+
+  mode="vmc"  the Metropolis sweep of method/vmc.py, drift capped in norm;
+              pq_pbc_sweep, LAUNCHES; returns (positions, wrap, state, acc);
+  mode="dmc"  the drift-diffusion sweep of method/dmc.py: Umrigar drift
+              limiting at the old and the new position
+              (move_pallas_pbc.py:415-423), fixed-node rejection of a move
+              with ratio <= 0 (:505-507), and per walker the summed squared
+              displacements |gauss + tau drift_old|^2 over every proposal
+              (r2p) and over the accepted ones (r2a) (:510-516);
+              pq_pbc_dmc_sweep, DMC_LAUNCHES; returns
+              (positions, wrap, state, (acc, r2p, r2a)).
+
+Per electron move, the kernel folds the proposal into the
 supercell and accumulates the wrap delta, folds it into the primitive cell
 and takes each orbital column's TRIM sign, evaluates the replicated-shell
 AOs and contracts them with the folded coefficients R on the fly, takes the
@@ -16,10 +30,7 @@ returns None outside it; ops/move_sweep.py:build_fused_sweep delegates
 here for a periodic pattern. The returned `FusedSweepPBC` runs the plain
 version for CPU tensors and launches the kernel for CUDA tensors; it never
 falls back from one to the other. The plain version is
-ops/move_sweep.py:sweep_plain with the periodic Geometry.enforce. The dmc
-mode of the Pallas kernel is not ported yet: inside the gate, mode="dmc"
-runs the plain dmc sweep on CPU tensors and raises KernelUnsupported on
-CUDA tensors.
+ops/move_sweep.py:sweep_plain with the periodic Geometry.enforce.
 """
 
 from __future__ import annotations
@@ -32,7 +43,8 @@ from . import distances as _dist
 from .gto_kernels import MAX_L, pack_groups
 from .move_sweep import KernelUnsupported, WalkerState, _KIND, check_cuda, sweep_plain
 
-LAUNCHES = _build.LaunchCount()
+LAUNCHES = _build.LaunchCount()  # vmc-mode kernel
+DMC_LAUNCHES = _build.LaunchCount()  # dmc-mode kernel
 MAX_ORBITALS_PER_SPIN = 32  # one lane per orbital column
 MAX_SHARED_BYTES = 227 * 1024
 
@@ -203,8 +215,6 @@ class FusedSweepPBC:
     def kernel(self, params, positions, wrap, state, gauss_step, unif_step):
         nconf, nelec = positions.shape[:2]
         dtype = positions.dtype
-        if self.mode != "vmc":
-            raise KernelUnsupported("the dmc mode of the periodic sweep kernel is not ported")
         self.tables.check()
         if gauss_step.shape != (nelec, nconf, 3) or unif_step.shape != (nelec, nconf):
             raise ValueError("gauss_step must be (nelec, nconf, 3) and unif_step (nelec, nconf), "
@@ -217,23 +227,32 @@ class FusedSweepPBC:
         unif_w = unif_step.t().contiguous()  # (nconf, nelec)
         state_out = torch.empty_like(state_in)
         wrapd = torch.empty((nconf, nelec, 3), dtype=dtype, device=positions.device)
-        nacc = torch.empty(nconf, dtype=dtype, device=positions.device)
-        check_cuda(dtype, state_in, gauss_w, unif_w, R, tab, meta, state_out, wrapd, nacc)
-        _build.launch("pq_pbc_sweep", dtype, state_in.data_ptr(), state_out.data_ptr(),
-                      gauss_w.data_ptr(), unif_w.data_ptr(), wrapd.data_ptr(), nacc.data_ptr(),
-                      R.data_ptr(), tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(),
-                      nconf, state_in.shape[1], self.tables.nao, R.shape[1], nelec, self.tstep,
-                      self.drift_cutoff)
-        LAUNCHES.add()
+        dmc = self.mode == "dmc"
+        # per-walker outputs: accepted moves, and in dmc mode r2p and r2a
+        sums = torch.empty((3 if dmc else 1, nconf), dtype=dtype, device=positions.device)
+        check_cuda(dtype, state_in, gauss_w, unif_w, R, tab, meta, state_out, wrapd, sums)
+        args = (state_in.data_ptr(), state_out.data_ptr(), gauss_w.data_ptr(), unif_w.data_ptr(),
+                wrapd.data_ptr(), sums.data_ptr(), R.data_ptr(), tab.data_ptr(), tab.numel(),
+                meta.data_ptr(), meta.numel(), nconf, state_in.shape[1], self.tables.nao,
+                R.shape[1], nelec, self.tstep)
+        if dmc:
+            _build.launch("pq_pbc_dmc_sweep", dtype, *args)
+            DMC_LAUNCHES.add()
+        else:
+            _build.launch("pq_pbc_sweep", dtype, *args, self.drift_cutoff)
+            LAUNCHES.add()
         pos_o, new_state = self.walkers.unpack(state_out, sizes, state, walker_major=True)
-        # wrap deltas are whole numbers (floor in the kernel's dtype)
-        return pos_o, wrap + wrapd.to(torch.int32), new_state, torch.mean(nacc)
+        # wrap deltas are whole numbers (floor in the kernel's dtype); the sum
+        # over electrons of the mean acceptance is the walker mean of the count
+        wrap_o, acc = wrap + wrapd.to(torch.int32), torch.mean(sums[0])
+        if dmc:
+            return pos_o, wrap_o, new_state, (acc, sums[1], sums[2])
+        return pos_o, wrap_o, new_state, acc
 
 
 def build_fused_sweep_pbc(wf, geometry, tstep, drift_cutoff=1.0, mode="vmc"):
     """FusedSweepPBC for a periodic wavefunction inside the gate, else None
-    (the caller then runs sweep_plain). Only the vmc mode's kernel is
-    ported: a dmc-mode sweep raises KernelUnsupported on CUDA tensors."""
+    (the caller then runs sweep_plain)."""
     m = _match_sj_pbc(wf, geometry)
     if m is None:
         return None

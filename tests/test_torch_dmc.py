@@ -37,7 +37,8 @@ from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
 from pyqmc_tpu_torch.ops.tmove_sweep import FusedTmoveSweep, build_fused_tmove_sweep
 from pyqmc_tpu_torch.utils.dtypes import NoCudaDeviceError
 
-from .torch_parity import (F64, bc_pair, h2o_pair, h2o_params, h2o_wf_objects, jax_rotations,
+from .torch_parity import (F64, bc_pair, compile_quick, diamond_cells, gamma_params,
+                           gamma_wf_objects, h2o_pair, h2o_params, h2o_wf_objects, jax_rotations,
                            walkers)
 
 TSTEP, NSTEPS, NCONF = 0.3, 2, 48
@@ -118,32 +119,43 @@ def _systems(name):
     """(jax mol, jax wf, jax params, port mol, port wf, port params)."""
     if name == "bc":
         return bc_pair()
+    if name == "gamma":
+        jcell, _, tcell = diamond_cells()
+        jwf, twf = gamma_wf_objects()
+        jp, tp = gamma_params(np.random.default_rng(6))
+        return jcell, jwf, jp, tcell, twf, tp
     (jmol, _), (tmol, _) = h2o_pair()
     jwf, twf = h2o_wf_objects()
     jp, tp = h2o_params(np.random.default_rng(6))
     return jmol, jwf, jp, tmol, twf, tp
 
 
-@pytest.mark.parametrize("name", ["h2o", "bc"])
+@pytest.mark.parametrize("name", ["h2o", "bc", "gamma"])
 def test_tmove_quadrature_matches_jax(name):
     """Points, weights w_q = -tau T_q and ratios r_q of every electron to
     1e-10. On B + C the two atoms have grids of 12 and 6 points, and the
     quadrature runs C's first: this fixes the category order that the
-    shared u_sel stream selects from."""
+    shared u_sel stream selects from. On the gamma-point diamond primitive
+    cell the quadrature is dense (12 points, no downselection) and each
+    sphere sits on the nearest image of its atom; walkers near the origin
+    lie partly outside the cell."""
     jmol, jwf, jp, tmol, twf, tp = _systems(name)
     rng = np.random.default_rng(7)
     nconf, tau = 3, 0.05
     pos = walkers(rng, nconf, nelec=jwf.nelec, scale=0.8)  # electrons inside the cores
     jacc, tacc = JECP(jmol, fused=False), ECPAccumulator(tmol)
     assert tacc.active and tacc.atom_naip == list(jacc.atom_naip)
-    jquad = jax.jit(lambda state, e, key: jacc.tmove_quadrature(
-        jwf, jp, state, jnp.asarray(pos), e, key, tau))
-    jstate = jax.jit(jwf.recompute)(jp, jnp.asarray(pos))
+    assert tacc.nselect is None and jacc.nselect is None  # dense
+    jpos = jnp.asarray(pos)
+    jstate = compile_quick(jax.jit(jwf.recompute), jp, jpos)(jp, jpos)
+    keys = [jax.random.fold_in(jax.random.PRNGKey(8), e) for e in range(jwf.nelec)]
+    jquad = compile_quick(jax.jit(lambda state, e, key: jacc.tmove_quadrature(
+        jwf, jp, state, jpos, e, key, tau)), jstate, jnp.int32(0), keys[0])
     tstate = twf.recompute(tp, t64(pos))
     wmax = 0.0
     for e in range(jwf.nelec):
-        key = jax.random.fold_in(jax.random.PRNGKey(8), e)
-        aux_j, w_j, r_j = jquad(jstate, e, key)
+        key = keys[e]
+        aux_j, w_j, r_j = jquad(jstate, jnp.int32(e), key)
         rot = t64(random_rotations(key, (nconf,)))
         aux_t, w_t, r_t = tacc.tmove_quadrature(twf, tp, tstate, t64(pos), e, rot, tau)
         assert aux_t.shape == (nconf, sum(tacc.atom_naip), 3)

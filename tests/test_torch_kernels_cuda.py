@@ -10,8 +10,9 @@ float64 at a small size, so every accept decision is the same on both
 sides: positions and state to 1e-9 (absolute, and relative for inverse
 entries near a node), acceptance exactly, ECP energy to rtol 1e-9; the
 periodic kernels K3, K6 (to 1e-9 of each entry plus the largest entry) and
-K7 (state, wrap counts) on the diamond supercell at 37 walkers, a count
-that fills no block of the sweep's 4 walkers exactly. The full
+K7 in both modes (state, wrap counts; r2p and r2a in the dmc mode) on the
+diamond supercell at 37 walkers, a count that fills no block of the
+sweep's 4 walkers exactly. The full
 production-size checks, float32 included, are in chip_smoke.py.
 """
 
@@ -157,17 +158,30 @@ def test_pbc_sweep_kernel_matches_plain(cuda_diamond):
 
 
 @pytest.mark.cuda
-def test_pbc_dmc_sweep_raises_on_cuda(cuda_diamond):
-    """K7's dmc mode is not ported: inside the gate, a dmc-mode sweep of
-    CUDA tensors raises rather than running the plain sweep."""
+def test_pbc_dmc_sweep_kernel_matches_plain(cuda_diamond):
+    """K7's dmc mode against the plain dmc sweep: the vmc checks plus r2p
+    and r2a per walker, at tstep 0.5 so that wraps and node rejections
+    both happen."""
+    from pyqmc_tpu_torch.ops import move_sweep_pbc
+
     wf, params, configs = cuda_diamond
-    sweep = move_sweep.build_fused_sweep(wf, configs.geometry, 0.02, mode="dmc")
+    sweep = move_sweep.build_fused_sweep(wf, configs.geometry, 0.5, mode="dmc")
+    assert isinstance(sweep, move_sweep_pbc.FusedSweepPBC) and sweep.mode == "dmc"
     gen = torch.Generator(device="cuda").manual_seed(6)
-    streams = draw_streams(gen, 1, 64, 37, 0.02, "cuda", torch.float64)
+    streams = draw_streams(gen, 1, 64, 37, 0.5, "cuda", torch.float64)
     state = wf.recompute(params, configs.positions)
-    with pytest.raises(move_sweep.KernelUnsupported):
-        sweep(params, configs.positions, configs.wrap, state, streams["gauss"][0],
-              streams["unif"][0])
+    args = (params, configs.positions, configs.wrap, state, streams["gauss"][0],
+            streams["unif"][0])
+    n0, v0 = move_sweep_pbc.DMC_LAUNCHES.n, move_sweep_pbc.LAUNCHES.n
+    pk, wk, sk, (ak, r2pk, r2ak) = sweep(*args)
+    pp, wp, sp, (ap, r2pp, r2ap) = sweep.plain(*args)
+    assert (move_sweep_pbc.DMC_LAUNCHES.n, move_sweep_pbc.LAUNCHES.n) == (n0 + 1, v0)
+    assert abs(float(ak) - float(ap)) * 37 < 0.5 and torch.equal(wk, wp)
+    assert not torch.equal(wk, configs.wrap)  # some accepted moves crossed the cell
+    assert bool(torch.any(r2ak < r2pk))  # some moves were rejected
+    assert _close(pk, pp, 1e-9) and _close(r2pk, r2pp, 1e-9) and _close(r2ak, r2ap, 1e-9)
+    for a, b in zip(sk[0] + sk[1], sp[0] + sp[1]):
+        assert _close(a, b, 1e-9)
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ replicated-shell AOs), 5 walkers, tstep 0.5.
   block average to 1e-9. The JAX block draws from a key; the test redraws
   its numbers with the same JAX calls and passes them as `streams`.
 - diamond_setup and vmc() at the 2x2x2 supercell on the CPU, and K7's
-  host half (its gate, its tables).
+  host half (its gate, its tables, its dmc mode's own launch counter).
 """
 
 import functools
@@ -35,7 +35,7 @@ from pyqmc_tpu_torch.convert import (jastrow_state_from_numpy, slater_state_from
 from pyqmc_tpu_torch.method.vmc import make_vmc_block, vmc
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
 from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
-from pyqmc_tpu_torch.ops.move_sweep import KernelUnsupported, build_fused_sweep, sweep_plain
+from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep, sweep_plain
 
 from .torch_parity import (F64, assert_trees_close, cell_walkers, diamond_cells, gamma_params,
                            gamma_jax_recompute, gamma_wf_objects, jax_ecp_streams)
@@ -150,6 +150,7 @@ def test_diamond_setup_and_vmc_on_cpu():
     vmc() block on the CPU; K7's gate and host tables for it; the default
     device is the GPU."""
     from pyqmc_tpu_torch.entry import diamond_setup
+    from pyqmc_tpu_torch.ops import move_sweep_pbc
     from pyqmc_tpu_torch.ops.gto_kernels import GTOTables
     from pyqmc_tpu_torch.ops.move_sweep_pbc import P_I_KORB, P_NAO, P_NELEC, PBCTables
     from pyqmc_tpu_torch.utils.dtypes import NoCudaDeviceError
@@ -166,8 +167,17 @@ def test_diamond_setup_and_vmc_on_cpu():
     fused = build_fused_sweep(wf, configs.geometry, TSTEP)
     dmc = build_fused_sweep(wf, configs.geometry, 0.02, mode="dmc")
     assert type(fused).__name__ == "FusedSweepPBC" and dmc.mode == "dmc"
-    with pytest.raises(KernelUnsupported):  # K7's dmc mode is not ported
-        dmc.kernel(params, configs.positions, configs.wrap, None, None, None)
+    # K7's dmc mode has a launch counter of its own; for CPU tensors the
+    # wrapper runs the plain dmc sweep and launches nothing
+    assert move_sweep_pbc.DMC_LAUNCHES is not move_sweep_pbc.LAUNCHES
+    n0 = (move_sweep_pbc.LAUNCHES.n, move_sweep_pbc.DMC_LAUNCHES.n)
+    gen = torch.Generator().manual_seed(4)
+    gauss = torch.randn((64, 3, 3), generator=gen, dtype=F64) * 0.1
+    state = wf.recompute(params, configs.positions)
+    p1, _, _, (_, r2p, r2a) = dmc(params, configs.positions, configs.wrap, state, gauss,
+                                  torch.rand((64, 3), generator=gen, dtype=F64))
+    assert (move_sweep_pbc.LAUNCHES.n, move_sweep_pbc.DMC_LAUNCHES.n) == n0
+    assert p1.shape == (3, 64, 3) and r2p.shape == (3,) and bool(torch.all(r2a <= r2p))
     tables = PBCTables(configs.geometry, wf.wfs[0], wf.wfs[1], orb)
     assert tables.unsupported is None
     assert (tables._meta[P_NELEC], tables._meta[P_NAO]) == (64, 489)

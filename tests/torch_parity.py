@@ -210,6 +210,13 @@ def gamma_params(rng):
     return jparams, params_from_numpy(jax.device_get(jparams), device="cpu", dtype=F64)
 
 
+def compile_quick(jitted, *args):
+    """A jitted JAX function lowered for `args` and compiled with XLA's
+    backend optimisation off: the same program, compiled in less time, for
+    a test that runs it once. Call the result with the same args."""
+    return jitted.lower(*args).compile(compiler_options={"xla_backend_optimization_level": 0})
+
+
 def cell_walkers(rng, lattice, nconf, nelec=8, lo=-0.3, hi=1.3):
     """Positions (nconf, nelec, 3) at fractional coordinates in [lo, hi),
     so some lie outside the cell and exercise the folds."""
