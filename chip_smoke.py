@@ -89,7 +89,11 @@ and periodic fixed-node DMC with T-moves, both in 10-step blocks.
      one ECP chunk, 252,000 points; and at H2O's 23 AOs on its ECP
      points); K3 and K6 to 1e-9 (f64) and 1e-4 (f32) of their entries plus
      the largest entry's magnitude (sums of 489 terms). Times and bounds as
-     in phase 2.
+     in phase 2; for K3 (at 252,000 points and at the T-move quadrature's
+     48,000) and K7 (both modes), the kernels redesigned for this card,
+     also the device time of one launch from CUDA events over 50 launches
+     of the C entry point back to back, the wrapper's time the same way,
+     and the bound's share of the device time (`redesigned_times`).
   9. the periodic VMC path through the entry points: diamond_setup(500) on
      the default device + vmc(), 8 blocks x 10 steps; launch counts per
      block exactly 10 K7, 20 K6 and 40 K3 (1, 2 and 4 per step); the energy
@@ -776,6 +780,13 @@ def compare_pbc_kernels(dtype):
     for name, (nbytes, ops) in bounds.items():
         ms, by = bound_ms(nbytes, ops)
         res[name].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
+    # K3 at the T-move quadrature's size: one electron's 96 points per walker
+    aux, _ = ecp.quadrature_geometry(pos[:, 0], streams["rot"][0][0])
+    Xq, _ = orb._fold(aux.reshape(-1, 3))
+    res["redesigned"] = redesigned_times(wf, configs.geometry, res, {
+        "value_mo": (vm, (X3, R)), "value_mo_48000": (vm, (Xq, R)),
+        "pbc_sweep": (sweep, (params, pos, wrap, state, gauss, unif)),
+        "pbc_dmc_sweep": (dsweep, dargs)})
     # the rest of a periodic step, each piece alone (wrappers and plain ops)
     from pyqmc_tpu_torch.observables.energy import kinetic_energy
 
@@ -789,6 +800,38 @@ def compare_pbc_kernels(dtype):
     ms, by = bound_ms(nbytes, ops)
     res["value_mo_h2o"].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
     return res
+
+
+def redesigned_times(wf, geometry, res, calls, reps=50):
+    """K3 (at 252,000 and 48,000 points) and K7 (both modes), the kernels
+    redesigned for this card, `calls` {name: (wrapper, its arguments)}: the
+    device time of one launch (CUDA events over `reps` launches of the C
+    entry point, back to back after a warm-up, its arguments packed once),
+    the wrapper's time (the same over wrapper calls, host packing
+    included), the bound and its share of the device time. Returns {name:
+    numbers}."""
+    from pyqmc_tpu_torch.ops import _build
+
+    out = {}
+    for name, (fn, args) in calls.items():
+        if name.startswith("value_mo"):
+            _, held, largs = fn.pack(*args)
+            entry, wrapper = "pq_value_mo", lambda: fn.kernel_t(*args)
+            nbytes, ops = kernel_bounds_pbc(wf, geometry, DIAMOND_NCONF,
+                                            {"pbc_sweep": 0, "pbc_dmc_sweep": 0},
+                                            args[0].shape[0], 1)["value_mo"]
+            bms, by = bound_ms(nbytes, ops)
+            out[name] = {"points": args[0].shape[0]}
+        else:
+            entry, _, held, largs = fn.pack(*args)
+            wrapper = lambda: fn.kernel(*args)
+            bms, by = res[name]["bound_ms"], res[name]["bound_by"]
+            out[name] = {}
+        dev = cuda_ms(lambda: _build.launch(entry, torch.float32, *largs), reps)
+        out[name].update({"device_ms": dev, "wrapper_ms": cuda_ms(wrapper, reps),
+                          "bound_ms": bms, "bound_by": by, "bound_share": bms / dev})
+        del held
+    return out
 
 
 # --- traces -----------------------------------------------------------------------
@@ -1054,6 +1097,9 @@ def main():
     print("phase 8 float64: " + json.dumps(p64), flush=True)
     p32 = compare_pbc_kernels(torch.float32)
     print("phase 8 float32: " + json.dumps(p32), flush=True)
+    print(f"phase 8: K3 and K7, device (CUDA events over back-to-back launches) and wrapper ms, "
+          f"bound and its share of the device time, {card}: {json.dumps(p32['redesigned'])}",
+          flush=True)
 
     print(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 9: the periodic VMC path through the entry points, default device
@@ -1321,7 +1367,16 @@ def main():
         else:
             entry["device_ms"] = device_ms(ours_pbc, f"{name}_kernel")
             entry["device_ms_periodic_dmc"] = device_ms(ours_qdmc, f"{name}_kernel")
+        red = p32["redesigned"].get(name)
+        if red is not None:
+            entry.update({"device_event_ms": red["device_ms"],
+                          "wrapper_event_ms": red["wrapper_ms"], "bound_share": red["bound_share"]})
         if name == "value_mo":
+            q = p32["redesigned"]["value_mo_48000"]
+            entry.update({"points": red["points"], "points_tmove": q["points"],
+                          "device_event_ms_tmove": q["device_ms"],
+                          "wrapper_event_ms_tmove": q["wrapper_ms"], "bound_ms_tmove": q["bound_ms"],
+                          "bound_share_tmove": q["bound_share"]})
             h = p32["value_mo_h2o"]
             entry.update({"h2o_ms": h["ms"], "h2o_plain_ms": h["plain_ms"],
                           "h2o_bound_ms": h["bound_ms"], "h2o_max_abs_err": h["max_abs_err"]})

@@ -2,9 +2,11 @@
 each with its plain PyTorch version beside it.
 
 K3, `ValueMO` (csrc/value_mo.cu): value-only AOs contracted with a
-coefficient matrix C (nao, norb) in the kernel's own body, one thread per
-point, output in the transposed layout (norb, M) so that neighbouring
-threads write neighbouring addresses. Counterpart of
+coefficient matrix C (nao, norb) as a tiled contraction: a block of 128
+points walks the basis in chunks of whole shells (`GTOTables.chunks`),
+evaluates each chunk's AOs into shared memory and contracts them with the
+chunk's rows of C in registers; output in the transposed layout (norb, M)
+so that neighbouring threads write neighbouring addresses. Counterpart of
 pyqmc_tpu/ops/gto_pallas.py:build_pallas_value_mo and its two wrappers
 `fused_value_mo_t` (the native (norb, M) layout) and `fused_value_mo`
 (row-major (..., norb); here the same kernel, transposed in PyTorch). Plain
@@ -37,9 +39,12 @@ VALUE_MO_LAUNCHES = _build.LaunchCount()  # K3
 EVAL_GTO2_LAUNCHES = _build.LaunchCount()  # K6
 MIN_NAO_FUSED2 = 128  # pyqmc_tpu/models/orbitals.py:_FUSED_MIN_NAO
 MAX_L = 3  # csrc/ao_shell.cuh
+CHUNK_AOS = 32  # K3's AOs per chunk at most (VMO_KA in csrc/value_mo.cu)
 
-# header slots of the tables (enum GtoSlot in csrc/ao_shell.cuh)
+# header slots of the tables (enum GtoSlot in csrc/ao_shell.cuh, then enum
+# VmoSlot in csrc/value_mo.cu)
 T_NAO, T_NGROUPS, T_I_GROUPS, T_I_AOROW, T_HEADER = range(5)
+T_NCHUNKS, T_I_CHUNKS = T_HEADER, T_HEADER + 1
 
 
 def pack_groups(spec: GTOSpec, put, meta):
@@ -59,11 +64,28 @@ def pack_groups(spec: GTOSpec, put, meta):
     return start
 
 
+def shell_chunks(spec: GTOSpec, max_aos: int = CHUNK_AOS) -> np.ndarray:
+    """K3's walk over the basis: (nchunks, 4) int rows (l-group, first shell
+    in the group, shells, first concat row), whole shells of one l-group
+    and at most max_aos AOs each, in concat row order (ChunkSlot in
+    csrc/value_mo.cu)."""
+    chunks, row = [], 0
+    for gi, g in enumerate(spec.groups):
+        ns_max = max(1, max_aos // (2 * g.l + 1))
+        S = g.alpha.shape[0]
+        for si in range(0, S, ns_max):
+            ns = min(ns_max, S - si)
+            chunks.append((gi, si, ns, row))
+            row += ns * (2 * g.l + 1)
+    return np.asarray(chunks, dtype=np.int32).reshape(-1, 4)
+
+
 class GTOTables:
     """The basis as the kernels read it: a float table and an int table
-    (layout in csrc/ao_shell.cuh), built once and cached per device and
-    dtype. concat_rows[r] is the AO index of concat row r, the order in
-    which the kernels visit the AOs (l-group, shell, m)."""
+    (layout in csrc/ao_shell.cuh; K3's chunk table after the groups), built
+    once and cached per device and dtype. concat_rows[r] is the AO index of
+    concat row r, the order in which the kernels visit the AOs (l-group,
+    shell, m)."""
 
     def __init__(self, spec: GTOSpec):
         self.nao = spec.nao
@@ -77,9 +99,12 @@ class GTOTables:
             fl.extend(np.asarray(arr, dtype=np.float64).ravel().tolist())
             return off
 
-        meta = [0] * T_HEADER
+        meta = [0] * (T_I_CHUNKS + 1)
         meta[T_NAO], meta[T_NGROUPS] = spec.nao, len(spec.groups)
         meta[T_I_GROUPS] = pack_groups(spec, put, meta)
+        self.chunks = shell_chunks(spec)
+        meta[T_NCHUNKS], meta[T_I_CHUNKS] = len(self.chunks), len(meta)
+        meta += self.chunks.ravel().tolist()
         meta[T_I_AOROW] = len(meta)
         meta += self.concat_rows.tolist()
         self._tab = np.asarray(fl)
@@ -126,6 +151,17 @@ class ValueMO:
         return (eval_gto(self.spec, X, 0) @ C).T
 
     def kernel_t(self, X, C):
+        out, inputs, args = self.pack(X, C)  # inputs stay referenced through the launch
+        if out.shape[1] == 0:
+            return out
+        _build.launch("pq_value_mo", X.dtype, *args)
+        VALUE_MO_LAUNCHES.add()
+        return out
+
+    def pack(self, X, C):
+        """(out, inputs, the arguments of pq_value_mo) of one launch: the
+        inputs checked and laid out as the kernel reads them (C in concat
+        row order) and held while the caller launches, out allocated."""
         dtype = X.dtype
         _check(X, dtype)
         if self.tables.unsupported:
@@ -137,13 +173,9 @@ class ValueMO:
         Cr = C.to(dtype)[rows].contiguous()
         M, norb = Xc.shape[0], Cr.shape[1]
         out = torch.empty((norb, M), dtype=dtype, device=X.device)
-        if M == 0:
-            return out
-        _build.launch("pq_value_mo", dtype, Xc.data_ptr(), Cr.data_ptr(), out.data_ptr(),
-                      tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(), M, norb,
-                      self.tables.nao)
-        VALUE_MO_LAUNCHES.add()
-        return out
+        return out, (Xc, Cr), (Xc.data_ptr(), Cr.data_ptr(), out.data_ptr(), tab.data_ptr(),
+                               tab.numel(), meta.data_ptr(), meta.numel(), M, norb,
+                               self.tables.nao)
 
 
 class EvalGTO2:

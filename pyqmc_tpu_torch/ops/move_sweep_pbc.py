@@ -22,7 +22,8 @@ supercell and accumulates the wrap delta, folds it into the primitive cell
 and takes each orbital column's TRIM sign, evaluates the replicated-shell
 AOs and contracts them with the folded coefficients R on the fly, takes the
 Jastrow minimal image by rounding with the supercell constants, and updates
-the inverse by Sherman-Morrison. One warp runs one walker, lane j owning
+the inverse by Sherman-Morrison. A group of four warps runs one walker,
+splitting every stage of a move across them; lane j of each warp owns
 orbital column j of the moving electron's spin.
 
 `build_fused_sweep_pbc` applies the JAX gate (`_match_sj_pbc`) once and
@@ -51,7 +52,7 @@ MAX_SHARED_BYTES = 227 * 1024
 # header slots, in the order of enum PbcSlot in csrc/pbc_sweep.cu
 (P_NELEC, P_NUP, P_NDN, P_NAO, P_NGROUPS, P_I_GROUPS, P_NK, P_F_KPTS, P_I_KORB, P_F_SLAT,
  P_F_SLATI, P_F_PLAT, P_F_PLATI, P_HASJ, P_NATOM, P_NA, P_NB, P_F_ATOMS, P_F_ABAS, P_F_BBAS,
- P_I_AKIND, P_I_BKIND, P_F_ACOEFF, P_F_BCOEFF, P_HEADER) = range(25)
+ P_I_AKIND, P_I_BKIND, P_F_ACOEFF, P_F_BCOEFF, P_F_JCONST, P_HEADER) = range(26)
 
 
 def _match_sj_pbc(wf, geometry):
@@ -154,6 +155,11 @@ class PBCTables:
             meta[P_F_ATOMS] = put(jastrow.atom_coords)
             meta[P_F_ABAS] = put([[b.param, b.rcut] for b in jastrow.a_basis])
             meta[P_F_BBAS] = put([[b.param, b.rcut] for b in jastrow.b_basis])
+            # per basis 1 / rcut and, for a cutoffcusp basis, its constant
+            # c0 = (1/3) / (1 + param/3) (models/func3d.py)
+            meta[P_F_JCONST] = put([[1.0 / b.rcut, (1.0 / 3.0) / (1.0 + b.param / 3.0)
+                                     if b.kind == "cutoffcusp" else 0.0]
+                                    for b in jastrow.a_basis + jastrow.b_basis])
             meta[P_I_AKIND] = len(meta)
             meta += [_KIND[b.kind] for b in jastrow.a_basis]
             meta[P_I_BKIND] = len(meta)
@@ -213,6 +219,23 @@ class FusedSweepPBC:
                            positions, wrap, state, gauss_step, unif_step, mode=self.mode)
 
     def kernel(self, params, positions, wrap, state, gauss_step, unif_step):
+        name, (state_out, sizes, wrapd, sums), inputs, args = self.pack(
+            params, positions, wrap, state, gauss_step, unif_step)  # inputs held to the end
+        _build.launch(name, positions.dtype, *args)
+        (DMC_LAUNCHES if self.mode == "dmc" else LAUNCHES).add()
+        pos_o, new_state = self.walkers.unpack(state_out, sizes, state, walker_major=True)
+        # wrap deltas are whole numbers (floor in the kernel's dtype); the sum
+        # over electrons of the mean acceptance is the walker mean of the count
+        wrap_o, acc = wrap + wrapd.to(torch.int32), torch.mean(sums[0])
+        if self.mode == "dmc":
+            return pos_o, wrap_o, new_state, (acc, sums[1], sums[2])
+        return pos_o, wrap_o, new_state, acc
+
+    def pack(self, params, positions, wrap, state, gauss_step, unif_step):
+        """(C entry name, (state_out, sizes, wrapd, sums), inputs, its
+        arguments) of one launch: the inputs checked and laid out as the
+        kernel reads them and held while the caller launches, the outputs
+        allocated."""
         nconf, nelec = positions.shape[:2]
         dtype = positions.dtype
         self.tables.check()
@@ -235,19 +258,11 @@ class FusedSweepPBC:
                 wrapd.data_ptr(), sums.data_ptr(), R.data_ptr(), tab.data_ptr(), tab.numel(),
                 meta.data_ptr(), meta.numel(), nconf, state_in.shape[1], self.tables.nao,
                 R.shape[1], nelec, self.tstep)
-        if dmc:
-            _build.launch("pq_pbc_dmc_sweep", dtype, *args)
-            DMC_LAUNCHES.add()
-        else:
-            _build.launch("pq_pbc_sweep", dtype, *args, self.drift_cutoff)
-            LAUNCHES.add()
-        pos_o, new_state = self.walkers.unpack(state_out, sizes, state, walker_major=True)
-        # wrap deltas are whole numbers (floor in the kernel's dtype); the sum
-        # over electrons of the mean acceptance is the walker mean of the count
-        wrap_o, acc = wrap + wrapd.to(torch.int32), torch.mean(sums[0])
-        if dmc:
-            return pos_o, wrap_o, new_state, (acc, sums[1], sums[2])
-        return pos_o, wrap_o, new_state, acc
+        name = "pq_pbc_dmc_sweep" if dmc else "pq_pbc_sweep"
+        if not dmc:
+            args += (self.drift_cutoff,)
+        return (name, (state_out, sizes, wrapd, sums), (state_in, gauss_w, unif_w, R, tab, meta),
+                args)
 
 
 def build_fused_sweep_pbc(wf, geometry, tstep, drift_cutoff=1.0, mode="vmc"):

@@ -11,8 +11,10 @@ sides: positions and state to 1e-9 (absolute, and relative for inverse
 entries near a node), acceptance exactly, ECP energy to rtol 1e-9; the
 periodic kernels K3, K6 (to 1e-9 of each entry plus the largest entry) and
 K7 in both modes (state, wrap counts; r2p and r2a in the dmc mode) on the
-diamond supercell at 37 walkers, a count that fills no block of the
-sweep's 4 walkers exactly. The full
+diamond supercell at 37 and at 6 walkers, counts that leave the last
+block of the sweep's 4 walkers (groups of 4 warps) partly empty; K3 also
+at 1037 points (not a multiple of its 128-point tile) with 8, 32 and 64
+orbital columns on the diamond's and on H2O's basis. The full
 production-size checks, float32 included, are in chip_smoke.py.
 """
 
@@ -116,13 +118,14 @@ def test_tmove_kernel_matches_plain(cuda_h2o):
         assert _close(a, b, 1e-9)
 
 
-@pytest.fixture
-def cuda_diamond():
+@pytest.fixture(params=[37, 6])
+def cuda_diamond(request):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from pyqmc_tpu_torch.entry import diamond_setup
 
-    sup, wf, params, configs, acc = diamond_setup(37, device="cuda", dtype=torch.float64, seed=3)
+    sup, wf, params, configs, acc = diamond_setup(request.param, device="cuda",
+                                                  dtype=torch.float64, seed=3)
     rng = np.random.default_rng(4)
     params["wf1"]["acoeff"] = torch.as_tensor(rng.normal(scale=0.1, size=(16, 4, 2)),
                                               dtype=torch.float64, device="cuda")
@@ -140,8 +143,9 @@ def test_pbc_sweep_kernel_matches_plain(cuda_diamond):
     wf, params, configs = cuda_diamond
     sweep = move_sweep.build_fused_sweep(wf, configs.geometry, 0.5)
     assert isinstance(sweep, move_sweep_pbc.FusedSweepPBC)
+    nconf = configs.positions.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(5)
-    streams = draw_streams(gen, 1, 64, 37, 0.5, "cuda", torch.float64)
+    streams = draw_streams(gen, 1, 64, nconf, 0.5, "cuda", torch.float64)
     state = wf.recompute(params, configs.positions)
     args = (params, configs.positions, configs.wrap, state, streams["gauss"][0],
             streams["unif"][0])
@@ -151,7 +155,7 @@ def test_pbc_sweep_kernel_matches_plain(cuda_diamond):
     assert move_sweep_pbc.LAUNCHES.n == n0 + 1
     # the same count of accepted moves (per-walker counts and per-electron
     # means are summed in two orders)
-    assert abs(float(ak) - float(ap)) * 37 < 0.5 and torch.equal(wk, wp)
+    assert abs(float(ak) - float(ap)) * nconf < 0.5 and torch.equal(wk, wp)
     assert _close(pk, pp, 1e-9)
     for a, b in zip(sk[0] + sk[1], sp[0] + sp[1]):
         assert _close(a, b, 1e-9)
@@ -167,8 +171,9 @@ def test_pbc_dmc_sweep_kernel_matches_plain(cuda_diamond):
     wf, params, configs = cuda_diamond
     sweep = move_sweep.build_fused_sweep(wf, configs.geometry, 0.5, mode="dmc")
     assert isinstance(sweep, move_sweep_pbc.FusedSweepPBC) and sweep.mode == "dmc"
+    nconf = configs.positions.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(6)
-    streams = draw_streams(gen, 1, 64, 37, 0.5, "cuda", torch.float64)
+    streams = draw_streams(gen, 1, 64, nconf, 0.5, "cuda", torch.float64)
     state = wf.recompute(params, configs.positions)
     args = (params, configs.positions, configs.wrap, state, streams["gauss"][0],
             streams["unif"][0])
@@ -176,7 +181,7 @@ def test_pbc_dmc_sweep_kernel_matches_plain(cuda_diamond):
     pk, wk, sk, (ak, r2pk, r2ak) = sweep(*args)
     pp, wp, sp, (ap, r2pp, r2ap) = sweep.plain(*args)
     assert (move_sweep_pbc.DMC_LAUNCHES.n, move_sweep_pbc.LAUNCHES.n) == (n0 + 1, v0)
-    assert abs(float(ak) - float(ap)) * 37 < 0.5 and torch.equal(wk, wp)
+    assert abs(float(ak) - float(ap)) * nconf < 0.5 and torch.equal(wk, wp)
     assert not torch.equal(wk, configs.wrap)  # some accepted moves crossed the cell
     assert bool(torch.any(r2ak < r2pk))  # some moves were rejected
     assert _close(pk, pp, 1e-9) and _close(r2pk, r2pp, 1e-9) and _close(r2ak, r2ap, 1e-9)
@@ -204,3 +209,36 @@ def test_gto_kernels_match_plain(cuda_diamond):
     hvm = hwf.wfs[0].orbitals._value_mo
     assert _close_scaled(hvm(hx, C), hvm.plain_t(hx, C).T, 1e-9)
     assert (gto_kernels.EVAL_GTO2_LAUNCHES.n, gto_kernels.VALUE_MO_LAUNCHES.n) == (n6 + 1, n3 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["diamond", "h2o"])
+@pytest.mark.parametrize("norb", [8, 32, 64])
+def test_value_mo_kernel_tiles(basis, norb):
+    """K3 against its plain version at 1037 points (the last 128-point tile
+    ragged) and random coefficients of norb columns (one tile of 8, 32 or
+    64 orbital columns), on the diamond's 489 replicated-shell AOs and on
+    H2O's 23."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pyqmc_tpu_torch.entry import diamond_setup
+    from pyqmc_tpu_torch.ops import gto_kernels
+
+    rng = np.random.default_rng(7)
+    if basis == "diamond":
+        _, wf, _, _, _ = diamond_setup(2, device="cuda", dtype=torch.float64, seed=3)
+        orb = wf.wfs[0].orbitals
+        X, _ = orb._fold(torch.as_tensor(rng.uniform(-3.0, 6.0, size=(1037, 3)),
+                                         dtype=torch.float64, device="cuda"))
+    else:
+        _, wf, _, _, _ = h2o_setup(2, device="cuda", dtype=torch.float64, seed=3)
+        orb = wf.wfs[0].orbitals
+        X = torch.as_tensor(rng.normal(scale=1.5, size=(1037, 3)), dtype=torch.float64,
+                            device="cuda")
+    vm = orb._value_mo
+    C = torch.as_tensor(rng.normal(size=(vm.tables.nao, norb)), dtype=torch.float64,
+                        device="cuda")
+    n3 = gto_kernels.VALUE_MO_LAUNCHES.n
+    out = vm.transposed(X, C)
+    assert gto_kernels.VALUE_MO_LAUNCHES.n == n3 + 1 and out.shape == (norb, 1037)
+    assert _close_scaled(out, vm.plain_t(X, C), 1e-9)

@@ -234,3 +234,39 @@ def test_gate():
         assert (tm is not None) == (name in ("diamond", "slater alone")), name
         if tm is not None:
             assert tm[2:4] == jm[2:4] and isinstance(tm[0], Slater)
+
+
+def test_value_mo_chunk_table():
+    """K3's walk over the basis (GTOTables.chunks, appended to its int
+    table): on the H2O and the diamond bases every concat row lies in
+    exactly one chunk, in order; no chunk holds more than CHUNK_AOS AOs; no
+    shell is split (a chunk is whole shells of one l-group)."""
+    from pyqmc_tpu_torch.models.orbitals import KPointOrbitals
+    from pyqmc_tpu_torch.ops.gto import GTOSpec
+    from pyqmc_tpu_torch.ops.gto_kernels import CHUNK_AOS, T_I_CHUNKS, T_NCHUNKS, GTOTables
+    from pyqmc_tpu_torch.system.io import load_npz
+
+    _, d, tcell = diamond_cells()
+    blocks = [np.asarray(d["mo_coeff"][0])[:, :4]]
+    diamond = KPointOrbitals(tcell, np.asarray(d["kpts"])[:1], (blocks, blocks), img_tol=1e-4)
+    for spec in (GTOSpec.from_molecule(load_npz()[0]), diamond._repl_spec):
+        tables = GTOTables(spec)
+        chunks = tables.chunks
+        meta = tables._meta
+        np.testing.assert_array_equal(
+            meta[meta[T_I_CHUNKS]:meta[T_I_CHUNKS] + chunks.size].reshape(-1, 4), chunks)
+        assert meta[T_NCHUNKS] == len(chunks)
+        shell_rows = {}  # (group, shell) -> its concat rows
+        row = 0
+        for gi, g in enumerate(spec.groups):
+            ns = 2 * g.l + 1
+            for si in range(g.alpha.shape[0]):
+                shell_rows[(gi, si)] = list(range(row, row + ns))
+                row += ns
+        assert row == spec.nao
+        covered = []
+        for gi, si0, nsh, row0 in chunks.tolist():
+            rows = [r for si in range(si0, si0 + nsh) for r in shell_rows[(gi, si)]]
+            assert 0 < len(rows) <= CHUNK_AOS and rows[0] == row0
+            covered += rows
+        assert covered == list(range(spec.nao))
