@@ -39,15 +39,33 @@ and periodic fixed-node DMC with T-moves, both in 10-step blocks.
      Then each kernel's time beside its plain version's (CUDA events) and
      its bound: the larger of its bytes over 3.35 TB/s and its float32
      operations over 67 TFLOP/s, both counted from this run's shapes and
-     accepted moves (`kernel_bounds`).
+     accepted moves (`kernel_bounds`); for K1, K4 and K5, the kernels
+     redesigned for this card (a group of lanes per walker), also the
+     device time of one launch from CUDA events over 50 launches of the C
+     entry point back to back, the wrapper's time the same way, and the
+     bound's share of the device time (`redesigned_times`).
+     Last, the float64 blocks: one 10-step VMC block (K1, K2) and one
+     10-step DMC block with T-moves (K4, K5, K2) of 512 walkers, each run
+     through make_vmc_block / make_dmc_block with the kernels and with
+     fused=False (and a plain ECP energy) on the same streams: positions,
+     the state leaves after every step (a probe accumulator keeps them),
+     every energy and the weights agree to 1e-9 (absolute, and relative
+     for large entries), the acceptances exactly (at 512 walkers the
+     means of accepted moves are exact in both summation orders). This
+     holds the kernels over a whole chain.
   3. the VMC path through the entry points: h2o_setup + vmc(), 4 blocks
      x 50 steps with the kernels; the launch counts must be 200 sweeps and
      200 ECP evaluations; energies finite; the mean total energy of the
      last two blocks in (-17.2, -16.8) Ha and the acceptance in
      (0.5, 0.75). These windows catch a missing ECP (+1 Ha) or a
      low-precision matmul bias; they are no bar for speed. The energy
-     must also repeat the chain's energy from before periodic DMC
-     (H2O_VMC_E) within 1e-4 Ha: the H2O draws do not change.
+     must repeat the lane-group kernels' chain (H2O_VMC_E) within 1e-4
+     Ha: the H2O draws do not change. It must also lie within 3 combined
+     standard errors of the chain of the one-thread-per-walker kernels
+     (H2O_VMC_E_ONE_THREAD): the standard error of the pinned mean is the
+     scatter of the blocks after the first (reblock_by2's first level)
+     over the square root of the blocks it averages, the same for the
+     earlier chain, so the combined one is sqrt(2) times it.
   4. one 50-step VMC block with the kernels and one with the plain
      versions, timed in turns (plain, kernel, kernel, plain)
   5. one kernel-path VMC block under torch.profiler: the device's busy
@@ -66,7 +84,8 @@ and periodic fixed-node DMC with T-moves, both in 10-step blocks.
      three blocks in (-17.6, -16.9) Ha and not above the warm-up VMC
      energy by more than 0.05 Ha. These windows catch a missing ECP, a
      broken branching weight or a sign error in the T-moves. The energy
-     must repeat H2O_DMC_E within 1e-4 Ha, as in phase 3.
+     must repeat H2O_DMC_E within 1e-4 Ha and lie within 3 combined
+     standard errors of H2O_DMC_E_ONE_THREAD, as in phase 3.
   7. one 10-step DMC block with the kernels and one with the plain
      versions, timed in turns, then one kernel-path DMC block under
      torch.profiler as in phase 5
@@ -165,11 +184,18 @@ DIAMOND_DMC_NLAST = 3  # blocks averaged for the energy check
 DIAMOND_DMC_REF = {"e_cell": -10.910391419065506, "sem": 0.04079764409454735,
                    "e_vmc_cell": -10.153945381096266, "acceptance": 0.9872368706597223,
                    "weights": [1.4012, 2.8029, 4.4290, 5.6434, 6.4479]}
-# H2O energies of chip_smoke.py before periodic DMC, bit for bit on two
-# cards (phase 3: E of the last 2 VMC blocks; phase 6: E of the last 3
-# DMC blocks): the chains that must not move
-H2O_VMC_E = -16.987856
-H2O_DMC_E = -17.221627
+# H2O energies (phase 3: E of the last 2 VMC blocks; phase 6: E of the last
+# 3 DMC blocks). With the one-thread-per-walker K1, K4 and K5 the float32
+# chains gave these bits on every card; the lane-group kernels sum in other
+# orders, so the chains left them, and the energies must lie within 3
+# combined standard errors of them:
+H2O_VMC_E_ONE_THREAD = -16.987856
+H2O_DMC_E_ONE_THREAD = -17.221627
+# and the lane-group kernels' chains, to 1e-4 Ha (bit for bit so far), so
+# that work on other paths cannot move them unnoticed:
+H2O_VMC_E = -16.987946
+H2O_DMC_E = -17.221626
+BLOCK_CHECK_NCONF = 512  # walkers of phase 2's float64 blocks (a power of 2: exact means)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -550,9 +576,107 @@ def compare_kernels(dtype):
     for name, (nbytes, ops) in kernel_bounds(wf, ecp_acc, NCONF, accepted).items():
         ms, by = bound_ms(nbytes, ops)
         res[name].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
+    res["redesigned"] = redesigned_times(
+        wf, Geometry(), res, {k: calls[k] for k in ("vmc_sweep", "dmc_sweep", "tmove_sweep")})
     # the rest of a step, plain PyTorch on the main path
     res["kinetic_ms"] = cuda_ms(lambda: kinetic_energy(wf, params, state, pos), 5)
     res["coulomb_ms"] = cuda_ms(lambda: acc["energy"].coulomb.energy(pos), 5)
+    return res
+
+
+class StateProbe:
+    """An accumulator that keeps a copy of the state leaves after every
+    step (make_vmc_block calls .avg, make_dmc_block the object itself); it
+    adds no averages."""
+
+    def __init__(self):
+        self.steps = []
+
+    def avg(self, wf, params, state, positions, rot=None, u_sel=None):
+        self.steps.append([t.clone() for t in leaves(state)])
+        return {}
+
+    __call__ = avg
+
+
+def compare_blocks():
+    """Phase 2's float64 blocks: a 10-step VMC block (K1, K2), then from its
+    walkers a 10-step DMC block with T-moves (K4, K5, K2), each with the
+    kernels and with the plain versions (fused=False and a plain ECP
+    energy) on the same streams, BLOCK_CHECK_NCONF walkers. Returns the
+    measured numbers; raises on disagreement."""
+    from pyqmc_tpu_torch.entry import h2o_setup
+    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams, make_dmc_block
+    from pyqmc_tpu_torch.method.vmc import draw_streams, make_vmc_block
+    from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
+    from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
+    from pyqmc_tpu_torch.ops import ecp_energy, move_sweep, tmove_sweep
+
+    dtype, nconf, nsteps = torch.float64, BLOCK_CHECK_NCONF, 10
+    mol, wf, params, configs, acc = h2o_setup(nconf, device="cuda", dtype=dtype, seed=11)
+    params = randomize_jastrow(params, 12)
+    nelec = configs.positions.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    energy = {True: acc["energy"],
+              False: EnergyAccumulator(mol, ecp_acc=ECPAccumulator(mol, fused=False))}
+    counters = {"vmc_sweep": move_sweep.LAUNCHES, "dmc_sweep": move_sweep.DMC_LAUNCHES,
+                "tmove_sweep": tmove_sweep.LAUNCHES, "ecp_energy": ecp_energy.LAUNCHES}
+
+    def both(label, run, launches):
+        """run(fused, probe) -> (positions, wrap, [weights,] averages), with
+        the kernels and plain; every output held to the other's."""
+        out = {}
+        for fused in (True, False):
+            before = {k: c.n for k, c in counters.items()}
+            probe = StateProbe()
+            out[fused] = (run(fused, probe), probe.steps)
+            n = {k: c.n - before[k] for k, c in counters.items()}
+            want = launches if fused else {k: 0 for k in counters}
+            check(n == {**{k: 0 for k in counters}, **want},
+                  f"f64 {label} block ({'kernels' if fused else 'plain'}) launched {n}")
+        (ko, ksteps), (po, psteps) = out[True], out[False]
+        *kt, kavg = ko
+        *pt, pavg = po
+        check(torch.equal(kt[1], pt[1]), f"f64 {label} block: wrap counts differ")
+        pairs = [(kt[0], pt[0])] + ([(kt[2], pt[2])] if len(kt) > 2 else [])
+        pairs += [(a, b) for ka, pa in zip(ksteps, psteps) for a, b in zip(ka, pa)]
+        pairs += [(kavg[k], pavg[k]) for k in sorted(kavg) if k != "acceptance"]
+        worst = 0.0
+        for a, b in pairs:
+            err = torch.abs(a - b)
+            worst = max(worst, float(torch.max(err)))
+            check(bool(torch.all(err <= 1e-9 * (1 + torch.abs(b)))),
+                  f"f64 {label} block: kernels and plain differ by {float(torch.max(err)):.3e}")
+        check(float(kavg["acceptance"]) == float(pavg["acceptance"]),
+              f"f64 {label} block acceptance {float(kavg['acceptance'])} != "
+              f"{float(pavg['acceptance'])}")
+        return ko, {"max_abs_err": worst, "steps": len(ksteps),
+                    "acceptance": float(kavg["acceptance"]),
+                    "energytotal": float(kavg["energytotal"])}
+
+    res = {"walkers": nconf}
+    vst = draw_streams(gen, nsteps, nelec, nconf, TSTEP, "cuda", dtype)
+
+    def vmc_run(fused, probe):
+        block = make_vmc_block(wf, {"energy": energy[fused], "probe": probe}, configs.geometry,
+                               TSTEP, nsteps, fused=fused)
+        return block(params, configs.positions, configs.wrap, gen, streams=vst)
+
+    (pos, wrap, vavg), res["vmc_block"] = both(
+        "VMC", vmc_run, {"vmc_sweep": nsteps, "ecp_energy": nsteps})
+    dst = draw_dmc_streams(gen, nsteps, nelec, nconf, DMC_TSTEP, "cuda", dtype)
+    e_trial = float(vavg["energytotal"])
+    weights = torch.ones(nconf, dtype=dtype, device="cuda")
+
+    def dmc_run(fused, probe):
+        block, _ = make_dmc_block(wf, energy[fused], configs.geometry, DMC_TSTEP, nsteps,
+                                  accumulators={"probe": probe}, fused=fused)
+        return block(params, pos, wrap, weights, gen, e_trial, e_trial, 0.5, streams=dst)
+
+    (dpos, _, _, _), res["dmc_block"] = both(
+        "DMC", dmc_run, {"dmc_sweep": nsteps, "tmove_sweep": nsteps, "ecp_energy": nsteps + 1})
+    res["dmc_block"]["walkers_moved_by_tmoves_or_drift"] = int(torch.sum(torch.any(
+        (dpos != pos).reshape(nconf, -1), dim=1)))
     return res
 
 
@@ -803,13 +927,13 @@ def compare_pbc_kernels(dtype):
 
 
 def redesigned_times(wf, geometry, res, calls, reps=50):
-    """K3 (at 252,000 and 48,000 points) and K7 (both modes), the kernels
-    redesigned for this card, `calls` {name: (wrapper, its arguments)}: the
-    device time of one launch (CUDA events over `reps` launches of the C
-    entry point, back to back after a warm-up, its arguments packed once),
-    the wrapper's time (the same over wrapper calls, host packing
-    included), the bound and its share of the device time. Returns {name:
-    numbers}."""
+    """The kernels redesigned for this card (K3 at 252,000 and 48,000
+    points, K7 in both modes; K1, K4, K5), `calls` {name: (wrapper, its
+    arguments)}: the device time of one launch (CUDA events over `reps`
+    launches of the C entry point, back to back after a warm-up, its
+    arguments packed once), the wrapper's time (the same over wrapper
+    calls, host packing included), the bound and its share of the device
+    time. Returns {name: numbers}."""
     from pyqmc_tpu_torch.ops import _build
 
     out = {}
@@ -897,6 +1021,29 @@ def predicted_weights(blocks, e_trial0, tstep, nsteps):
     return out
 
 
+def against_pins(phase, what, e, block_energies, nmean, pin, pin_one_thread):
+    """The H2O chain's energy e, the mean of the last nmean of
+    block_energies, against its pins: `pin` within 1e-4 Ha, and
+    `pin_one_thread` within 3 combined standard errors. The standard error
+    of e is the scatter of the blocks after the first (reblock_by2's first
+    level) over sqrt(nmean); the earlier chain ran the same schedule, so
+    its standard error is taken equal and the combined one is sqrt(2)
+    times it."""
+    from pyqmc_tpu_torch.reblock import reblock_by2
+
+    _, n, _, se, _ = reblock_by2(np.asarray(block_energies[1:], dtype=float))[0]
+    sem = se * np.sqrt(n) / np.sqrt(nmean)
+    comb = float(np.sqrt(2) * sem)
+    print(f"{phase}: H2O {what} E={e:.6f} Ha +- {sem:.6f} (blocks after the first); "
+          f"pinned {pin:.6f}; one-thread-per-walker kernels' chain {pin_one_thread:.6f}, "
+          f"{abs(e - pin_one_thread) / comb:.2f} combined standard errors ({comb:.6f}) away",
+          flush=True)
+    check(abs(e - pin_one_thread) <= 3 * comb,
+          f"the H2O {what} energy {e} is more than 3 combined standard errors ({comb}) from "
+          f"{pin_one_thread}, the one-thread-per-walker kernels' chain")
+    check(abs(e - pin) <= 1e-4, f"the H2O {what} chain moved: E {e} against {pin}")
+
+
 def timed_in_turns(fns, run, order=("plain", "kernel", "kernel", "plain")):
     """run(name, fn) for fn in `order`; returns mean seconds of each and
     the times."""
@@ -956,6 +1103,10 @@ def main():
         print("phase 2 float64: " + json.dumps(r64), flush=True)
         r32 = compare_kernels(torch.float32)
         print("phase 2 float32: " + json.dumps(r32), flush=True)
+    print(f"phase 2: K1, K4 and K5, device (CUDA events over back-to-back launches) and wrapper "
+          f"ms, bound and its share of the device time, {card}: "
+          f"{json.dumps(r32['redesigned'])}", flush=True)
+    print("phase 2 float64 blocks: " + json.dumps(compare_blocks()), flush=True)
 
     print(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 3: the VMC path through the entry points
@@ -987,9 +1138,9 @@ def main():
     check(-17.2 < e_last < -16.8, f"energy {e_last} outside (-17.2, -16.8) Ha")
     check(0.5 < a_last < 0.75, f"acceptance {a_last} outside (0.5, 0.75)")
     print(f"phase 3: launches {launches}, E(last 2 blocks)={e_last:.6f} Ha, acc={a_last:.4f}, "
-          f"{t_main:.2f} s for 4 blocks; before periodic DMC: E={H2O_VMC_E:.6f} Ha", flush=True)
-    check(abs(e_last - H2O_VMC_E) <= 1e-4, f"the H2O VMC chain moved: E {e_last} against "
-          f"{H2O_VMC_E} before periodic DMC")
+          f"{t_main:.2f} s for 4 blocks", flush=True)
+    against_pins("phase 3", "VMC", e_last, [b["energytotal"] for b in blocks], 2, H2O_VMC_E,
+                 H2O_VMC_E_ONE_THREAD)
 
     print(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 4: one VMC block with the kernels, one with the plain versions
@@ -1057,10 +1208,10 @@ def main():
     check(-17.6 < e_dmc < -16.9, f"DMC energy {e_dmc} outside (-17.6, -16.9) Ha")
     check(e_dmc < e_warm + 0.05, f"DMC energy {e_dmc} above the warm-up VMC energy {e_warm}")
     print(f"phase 6: launches {dlaunches}, E(last 3 blocks)={e_dmc:.6f} Ha, warm-up VMC "
-          f"E={e_warm:.6f} Ha, {t_dmc:.2f} s for {DMC_WARMUP} warm-up + {DMC_NBLOCKS} DMC blocks; "
-          f"before periodic DMC: E={H2O_DMC_E:.6f} Ha", flush=True)
-    check(abs(e_dmc - H2O_DMC_E) <= 1e-4, f"the H2O DMC chain moved: E {e_dmc} against "
-          f"{H2O_DMC_E} before periodic DMC")
+          f"E={e_warm:.6f} Ha, {t_dmc:.2f} s for {DMC_WARMUP} warm-up + {DMC_NBLOCKS} DMC blocks",
+          flush=True)
+    against_pins("phase 6", "DMC", e_dmc, [b["energytotal"] for b in dblocks], 3, H2O_DMC_E,
+                 H2O_DMC_E_ONE_THREAD)
 
     print(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 7: one DMC block with the kernels, one with the plain versions, one traced
@@ -1337,12 +1488,18 @@ def main():
         trace_names = {"vmc_sweep": ("sweep_kernel",), "dmc_sweep": ("sweep_kernel",),
                        "ecp_energy": ("ecp_partial_kernel", "ecp_reduce_kernel"),
                        "tmove_sweep": ("tmove_sweep_kernel",)}[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"pyqmc_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name], "launches": n, "launches_dmc_path": dlaunches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "device_ms": device_ms(ours_vmc if on_vmc else ours_dmc, *trace_names)})
+            "device_ms": device_ms(ours_vmc if on_vmc else ours_dmc, *trace_names)}
+        red = r32["redesigned"].get(name)
+        if red is not None:
+            entry.update({"device_event_ms": red["device_ms"],
+                          "wrapper_event_ms": red["wrapper_ms"],
+                          "bound_share": red["bound_share"]})
+        kernels.append(entry)
     for name in periodic:
         main_path = qlaunches if name == "pbc_dmc_sweep" else plaunches
         check(main_path[name] > 0 and qlaunches[name] > 0,

@@ -84,11 +84,11 @@ __device__ __forceinline__ void load_tables(const T* __restrict__ tab_g, int nta
   *meta = m;
 }
 
-// Radial Jastrow basis: value and f'(r)/r (models/func3d.py).
-template <typename T>
-__device__ __forceinline__ void basis_eval(int kind, T param, T rcut, T r, T& v, T& fo) {
+// Radial Jastrow basis of one kind: value and f'(r)/r (models/func3d.py).
+template <typename T, int KIND>
+__device__ __forceinline__ void basis_kind(T param, T rcut, T r, T& v, T& fo) {
   const bool inside = r < rcut;
-  if (kind == BASIS_POLYPADE) {
+  if (KIND == BASIS_POLYPADE) {
     const T x = clamp01(r / rcut);
     const T z = x * x * (T(6) - T(8) * x + T(3) * x * x);
     const T dzdx = T(12) * x * (T(1) - x) * (T(1) - x);
@@ -111,6 +111,15 @@ __device__ __forceinline__ void basis_eval(int kind, T param, T rcut, T r, T& v,
     v = inside ? f : T(0);
     fo = inside ? dfdr / rsafe : T(0);
   }
+}
+
+// Radial Jastrow basis of a kind known at run time.
+template <typename T>
+__device__ __forceinline__ void basis_eval(int kind, T param, T rcut, T r, T& v, T& fo) {
+  if (kind == BASIS_POLYPADE)
+    basis_kind<T, BASIS_POLYPADE>(param, rcut, r, v, fo);
+  else
+    basis_kind<T, BASIS_CUTOFFCUSP>(param, rcut, r, v, fo);
 }
 
 // Jastrow terms of electron e (spin s) placed at (x, y, z): the e-ion sum

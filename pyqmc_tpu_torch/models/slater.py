@@ -60,14 +60,23 @@ class Slater:
     for molecular orbitals); electron e occupies orbitals 0..n-1 of its
     spin.
 
-    Slater(mol, mo_coeff) builds MolecularOrbitals;
-    Slater(mol, orbitals=evaluator, expansion=DeterminantExpansion.single(
-    nup, ndn)) takes a ready evaluator (the JAX package's
-    Slater(mol, orbitals, expansion))."""
+    The arguments come in the JAX package's order,
+    Slater(mol, orbitals, expansion, mo_coeff=None, det_coeff=None):
+    Slater(mol, None, DeterminantExpansion.single(nup, ndn), (ca, cb))
+    builds MolecularOrbitals from mo_coeff; Slater(mol, evaluator,
+    expansion) takes a ready evaluator. An expansion of None is the single
+    determinant."""
 
-    def __init__(self, mol, mo_coeff=None, det_coeff=None, orbitals=None, expansion=None):
+    def __init__(self, mol, orbitals=None, expansion=None, mo_coeff=None, det_coeff=None):
         self.nup, self.ndn = mol.nelec
         self.nelec = self.nup + self.ndn
+        if expansion is not None and (expansion.occ_up.shape[1] != self.nup
+                                      or expansion.occ_dn.shape[1] != self.ndn):
+            raise ValueError(f"DeterminantExpansion electron counts ({expansion.occ_up.shape[1]} "
+                             f"up, {expansion.occ_dn.shape[1]} dn) do not match mol.nelec "
+                             f"{mol.nelec}")
+        if orbitals is None and mo_coeff is None:
+            raise ValueError("Slater needs orbitals or mo_coeff")
         self.orbitals = orbitals if orbitals is not None else MolecularOrbitals(mol, mo_coeff)
         if self.orbitals.norb[0] < self.nup or self.orbitals.norb[1] < self.ndn:
             raise ValueError(f"the orbitals have {self.orbitals.norb} columns for "
@@ -86,7 +95,8 @@ class Slater:
     def from_mean_field(mf):
         """Single determinant of the lowest nup / ndn orbitals of an SCF."""
         nup, ndn = mf.mol.nelec
-        return Slater(mf.mol, (mf.mo_coeff[0][:, :nup], mf.mo_coeff[1][:, :ndn]))
+        return Slater(mf.mol, None, DeterminantExpansion.single(nup, ndn),
+                      (mf.mo_coeff[0][:, :nup], mf.mo_coeff[1][:, :ndn]))
 
     def make_params(self, device=None, dtype=None):
         device = resolve_device(device)

@@ -70,6 +70,9 @@ def _ico_classes():
     return verts, np.asarray(faces)
 
 
+QUADRATURE_SIZES = (6, 12, 18, 26, 32, 50)
+
+
 def ecp_quadrature_grid(naip: int):
     """(points (naip, 3), weights (naip,)) for naip in {6, 12, 18, 26, 32,
     50}, exact through degree 3/5/5/7/9/11."""
@@ -217,25 +220,33 @@ class ECPAccumulator:
     wrapper runs the plain chain for CPU tensors. fused=False always runs
     the plain chain.
 
+    The arguments come in the JAX package's order, (mol, naip, rmax,
+    nselect, echunk, fused). naip: the angular quadrature size of every
+    atom, one of 6, 12, 18, 26, 32 or 50; None picks 12 for an atom with
+    more than one nonlocal channel and 6 for one with a single channel.
     nselect: quadrature points evaluated per electron; None evaluates all;
     "auto" caps them at 4 atoms' worth where an electron has more
     (observables/ecp.py:350-353). echunk: electrons per flat ratio call;
     "auto" bounds a call at 262,144 points (:660-749).
     """
 
-    def __init__(self, mol, rmax: float = 10.0, fused: bool = True, nselect="auto",
-                 echunk="auto"):
+    def __init__(self, mol, naip=None, rmax: float = 10.0, nselect="auto", echunk="auto",
+                 fused: bool = True):
         self.atoms = parse_ecp(mol)
-        # quadrature only on atoms with nonlocal channels; per-atom grid
-        # size 12 for a multi-channel ECP, 6 for a single channel (the JAX
-        # package's default; its naip override is not ported)
+        # quadrature only on atoms with nonlocal channels
         self.nl_atoms = [a for a in self.atoms if a.nonlocal_channels]
-        atom_naip = [12 if len(a.nonlocal_channels) > 1 else 6 for a in self.nl_atoms]
+        if naip is None:
+            atom_naip = [12 if len(a.nonlocal_channels) > 1 else 6 for a in self.nl_atoms]
+        elif naip in QUADRATURE_SIZES:
+            atom_naip = [naip] * len(self.nl_atoms)
+        else:
+            raise ValueError(f"naip must be one of {QUADRATURE_SIZES}, got {naip!r}")
         self.atom_coords = np.asarray(mol.atom_coords)
         lattice = getattr(mol, "lattice", None)
         self._lattice = None if lattice is None else np.asarray(lattice, dtype=np.float64)
         self._mic_mode = _dist.classify_lattice(self._lattice)
         self.atom_naip = atom_naip
+        self.naip = max(atom_naip, default=0)
         grids = {n: ecp_quadrature_grid(n) for n in set(atom_naip)}
         self.atom_quad = [grids[n] for n in atom_naip]
         self.nq_total = sum(atom_naip)

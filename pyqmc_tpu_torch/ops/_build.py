@@ -36,18 +36,21 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # C entry points (csrc/*.cu, extern "C"): their source and argument types
 _KERNELS = {
-    # state_in, state_out, gauss, unif, sums, tab, ntab, meta, nmeta, nconf,
-    # nrows, nmax, tstep, drift_cutoff, stream
-    "pq_vmc_sweep": ("vmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _D, _P]),
+    # state_in, state_out, gauss, unif, sums, tab, ntab, meta, nmeta, plan,
+    # nplan, nconf, nrows, nelec, nao, nprim, nmax, tstep, drift_cutoff,
+    # stream
+    "pq_vmc_sweep": ("vmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _D, _D, _P]),
     # as pq_vmc_sweep without drift_cutoff
-    "pq_dmc_sweep": ("dmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _P]),
+    "pq_dmc_sweep": ("dmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _D, _P]),
     # pos, invu, invd, rot, wvec, partial, out, tab, ntab, meta, nmeta,
     # nelec, nconf, stream
     "pq_ecp_energy": ("ecp_energy.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
-    # state_in, state_out, rot, u_sel, u_acc, scratch, tab, ntab, meta,
-    # nmeta, nconf, nrows, nmax, tau, stream
-    "pq_tmove_sweep": ("tmove_sweep.cu",
-                       [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _D, _P]),
+    # state_in, state_out, rot, u_sel, u_acc, tab, ntab, meta, nmeta, plan,
+    # nplan, nconf, nrows, nelec, nao, nprim, nq, nmax, tau, stream
+    "pq_tmove_sweep": ("tmove_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _D, _P]),
     # X, C, out, tab, ntab, meta, nmeta, M, norb, nao, stream
     "pq_value_mo": ("value_mo.cu", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]),
     # X, ao, grad, lap, tab, ntab, meta, nmeta, M, stream

@@ -48,6 +48,7 @@ MAX_CHANNELS = 8
 MAX_SHARED_BYTES = 48 * 1024
 
 
+
 class KernelUnsupported(ValueError):
     """The wavefunction is inside the gate but outside a kernel's compile-time caps."""
 
@@ -206,6 +207,7 @@ class SJTables:
         meta[M_NELEC] = self.nup + self.ndn
         meta[M_NUP], meta[M_NDN], meta[M_NAO] = self.nup, self.ndn, self.nao
         meta[M_NGROUPS] = len(spec.groups)
+        self.natom = self.na = self.nb = 0
         if self.hasj:
             self.natom, self.na, self.nb = (jastrow.natom, len(jastrow.a_basis),
                                             len(jastrow.b_basis))
@@ -219,13 +221,36 @@ class SJTables:
             meta[M_I_BKIND] = len(meta)
             meta += [_KIND[b.kind] for b in jastrow.b_basis]
         groups, row = [], 0
-        for g in spec.groups:
+        prims, shells = [], []
+        for gi, g in enumerate(spec.groups):
             S, P = g.alpha.shape
-            groups += [g.l, S, P, put(spec.atom_coords[g.shell_atoms]), put(g.alpha),
-                       put(g.coef), put(cart2sph_matrix(g.l)), row]
+            f_cen, f_alpha, f_coef = (put(spec.atom_coords[g.shell_atoms]), put(g.alpha),
+                                      put(g.coef))
+            groups += [g.l, S, P, f_cen, f_alpha, f_coef, put(cart2sph_matrix(g.l)), row]
             row += S * (2 * g.l + 1)
+            for si in range(S):
+                live = np.flatnonzero(g.coef[si])
+                shells.append([gi, si, len(prims), len(live)])
+                prims += [[f_cen + 3 * si, f_alpha + si * P + p, f_coef + si * P + p]
+                          for p in live]
         meta[M_I_GROUPS] = len(meta)
         meta += groups
+        # the lane-group kernels' plan (csrc/lane_group.cuh): the primitives
+        # with a nonzero coefficient, the shells, then per Jastrow basis kind
+        # the e-ion pairs (atom, basis) and the e-e bases
+        self.nprim = len(prims)
+        ion = [[], []]
+        bk = [[], []]
+        if self.hasj:
+            for k, b in enumerate(jastrow.b_basis):
+                bk[_KIND[b.kind]].append(k)
+            for atom in range(self.natom):
+                for k, b in enumerate(jastrow.a_basis):
+                    ion[_KIND[b.kind]] += [atom, k]
+        self.plan = np.asarray(
+            [len(prims), len(shells), len(ion[0]) // 2, len(ion[1]) // 2, len(bk[0]), len(bk[1])]
+            + [i for p in prims for i in p] + [i for sh in shells for i in sh]
+            + ion[0] + ion[1] + bk[0] + bk[1], dtype=np.int32)
         self.nq_total = 0
         if ecp_acc is not None:
             self._put_quadrature(ecp_acc, meta, put)
@@ -300,6 +325,13 @@ class SJTables:
             raise ValueError(f"parameters do not fit the tables: {tab.numel()} != {self.ntab}")
         return tab, meta
 
+    def plan_tensor(self, device):
+        """The lane-group kernels' plan (`plan`) as an int32 tensor on `device`."""
+        key = ("plan", torch.device(device))
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(self.plan, device=device)
+        return self._cache[key]
+
 
 def check_cuda(dtype, *tensors):
     """Device, dtype and contiguity checks before passing pointers to a kernel."""
@@ -324,9 +356,10 @@ def _factor(wf, idx, params, state):
 
 
 class WalkerState:
-    """The kernels' walker-minor state: row r of walker w at [r, w]. Rows:
-    pos (3 nelec) | inv_up | inv_dn | phase_up | logdet_up | phase_dn |
-    logdet_dn | mog_up | mog_dn | u (csrc/sweep_kernel.cuh)."""
+    """The kernels' state rows, walker w's row r at [w, r] (walker-major).
+    Rows: pos (3 nelec) | inv_up |
+    inv_dn | phase_up | logdet_up | phase_dn | logdet_dn | mog_up | mog_dn
+    | u (csrc/sweep_kernel.cuh)."""
 
     def __init__(self, wf, slater, jastrow, sl_idx, j_idx):
         self.wf, self.slater, self.jastrow = wf, slater, jastrow
@@ -340,27 +373,25 @@ class WalkerState:
         j_params, js = _factor(self.wf, self.j_idx, params, state)
         return sl_params, sl, j_params, js
 
-    def pack(self, positions, sl, js, walker_major=False):
-        """(rows, nconf) contiguous tensor, or (nconf, rows) when
-        walker_major, and the row count of every leaf."""
+    def pack(self, positions, sl, js):
+        """(nconf, rows) contiguous tensor and the row count of every leaf."""
         nconf, dtype = positions.shape[0], positions.dtype
         u = js.u if js is not None else torch.zeros(nconf, dtype=dtype, device=positions.device)
         cols = [positions, sl.inv_up, sl.inv_dn, sl.phase_up, sl.logdet_up, sl.phase_dn,
                 sl.logdet_dn, sl.mog_up, sl.mog_dn, u]
         sizes = [c[0].numel() for c in cols]
         packed = torch.cat([c.reshape(nconf, -1).to(dtype) for c in cols], dim=1)
-        return (packed.contiguous() if walker_major else packed.t().contiguous()), sizes
+        return packed.contiguous(), sizes
 
-    def unpack(self, packed, sizes, state, walker_major=False):
+    def unpack(self, packed, sizes, state):
         """(positions, new state) from the kernel's output rows."""
         from ..models.jastrow import JastrowState
         from ..models.multiply import MultiplyWF
         from ..models.slater import SlaterState
 
-        rows_last = packed if walker_major else packed.t()
-        nconf = rows_last.shape[0]
+        nconf = packed.shape[0]
         nup, ndn = self.slater.nup, self.slater.ndn
-        out = torch.split(rows_last, sizes, dim=1)
+        out = torch.split(packed, sizes, dim=1)
         pos_o = out[0].reshape(nconf, nup + ndn, 3)
         new_sl = SlaterState(
             inv_up=out[1].reshape(nconf, 1, nup, nup), inv_dn=out[2].reshape(nconf, 1, ndn, ndn),
@@ -405,6 +436,21 @@ class FusedSweep:
                            positions, wrap, state, gauss_step, unif_step, mode=self.mode)
 
     def kernel(self, params, positions, wrap, state, gauss_step, unif_step):
+        name, (state_out, sizes, sums), inputs, args = self.pack(
+            params, positions, wrap, state, gauss_step, unif_step)  # inputs held to the end
+        _build.launch(name, positions.dtype, *args)
+        (DMC_LAUNCHES if self.mode == "dmc" else LAUNCHES).add()
+        pos_o, new_state = self.walkers.unpack(state_out, sizes, state)
+        # sum over electrons of the mean acceptance = walker mean of the count
+        acc = torch.mean(sums[0])
+        if self.mode == "dmc":
+            return pos_o, wrap, new_state, (acc, sums[1], sums[2])
+        return pos_o, wrap, new_state, acc
+
+    def pack(self, params, positions, wrap, state, gauss_step, unif_step):
+        """(C entry name, (state_out, sizes, sums), inputs, its arguments) of
+        one launch: the inputs checked and laid out as the kernel reads
+        them and held while the caller launches, the outputs allocated."""
         nconf, nelec = positions.shape[:2]
         dtype = positions.dtype
         self.tables.check(dtype)
@@ -413,29 +459,23 @@ class FusedSweep:
                              f"got {tuple(gauss_step.shape)} and {tuple(unif_step.shape)}")
         sl_params, sl, j_params, js = self.walkers.split(params, state)
         state_in, sizes = self.walkers.pack(positions, sl, js)
-        gauss_t = gauss_step.permute(0, 2, 1).reshape(3 * nelec, nconf).contiguous()
-        unif_t = unif_step.contiguous()
+        gauss_w = gauss_step.permute(1, 0, 2).contiguous()  # (nconf, nelec, 3)
+        unif_t = unif_step.contiguous()  # (nelec, nconf)
         tab, meta = self.tables.pack(sl_params, j_params, positions.device, dtype)
+        plan = self.tables.plan_tensor(positions.device)
         state_out = torch.empty_like(state_in)
         dmc = self.mode == "dmc"
         # per-walker outputs: accepted moves, and in dmc mode r2p and r2a
         sums = torch.empty((3 if dmc else 1, nconf), dtype=dtype, device=positions.device)
-        check_cuda(dtype, state_in, gauss_t, unif_t, tab, meta, state_out, sums)
-        args = (state_in.data_ptr(), state_out.data_ptr(), gauss_t.data_ptr(), unif_t.data_ptr(),
-                sums.data_ptr(), tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(), nconf,
-                state_in.shape[0], self.walkers.nmax(), self.tstep)
-        if dmc:
-            _build.launch("pq_dmc_sweep", dtype, *args)
-            DMC_LAUNCHES.add()
-        else:
-            _build.launch("pq_vmc_sweep", dtype, *args, self.drift_cutoff)
-            LAUNCHES.add()
-        pos_o, new_state = self.walkers.unpack(state_out, sizes, state)
-        # sum over electrons of the mean acceptance = walker mean of the count
-        acc = torch.mean(sums[0])
-        if dmc:
-            return pos_o, wrap, new_state, (acc, sums[1], sums[2])
-        return pos_o, wrap, new_state, acc
+        check_cuda(dtype, state_in, gauss_w, unif_t, tab, meta, plan, state_out, sums)
+        args = (state_in.data_ptr(), state_out.data_ptr(), gauss_w.data_ptr(), unif_t.data_ptr(),
+                sums.data_ptr(), tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(),
+                plan.data_ptr(), plan.numel(), nconf, state_in.shape[1], nelec, self.tables.nao,
+                self.tables.nprim, self.walkers.nmax(), self.tstep)
+        if not dmc:
+            args += (self.drift_cutoff,)
+        return ("pq_dmc_sweep" if dmc else "pq_vmc_sweep", (state_out, sizes, sums),
+                (state_in, gauss_w, unif_t, tab, meta, plan), args)
 
 
 def build_fused_sweep(wf, geometry, tstep, drift_cutoff=1.0, mode="vmc"):

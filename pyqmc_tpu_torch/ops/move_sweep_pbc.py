@@ -223,7 +223,7 @@ class FusedSweepPBC:
             params, positions, wrap, state, gauss_step, unif_step)  # inputs held to the end
         _build.launch(name, positions.dtype, *args)
         (DMC_LAUNCHES if self.mode == "dmc" else LAUNCHES).add()
-        pos_o, new_state = self.walkers.unpack(state_out, sizes, state, walker_major=True)
+        pos_o, new_state = self.walkers.unpack(state_out, sizes, state)
         # wrap deltas are whole numbers (floor in the kernel's dtype); the sum
         # over electrons of the mean acceptance is the walker mean of the count
         wrap_o, acc = wrap + wrapd.to(torch.int32), torch.mean(sums[0])
@@ -243,7 +243,7 @@ class FusedSweepPBC:
             raise ValueError("gauss_step must be (nelec, nconf, 3) and unif_step (nelec, nconf), "
                              f"got {tuple(gauss_step.shape)} and {tuple(unif_step.shape)}")
         sl_params, sl, j_params, js = self.walkers.split(params, state)
-        state_in, sizes = self.walkers.pack(positions, sl, js, walker_major=True)
+        state_in, sizes = self.walkers.pack(positions, sl, js)
         tab, meta, rows = self.tables.pack(j_params, positions.device, dtype)
         R = self.orb._folded_coeff(sl_params, dtype)[rows].contiguous()
         gauss_w = gauss_step.permute(1, 0, 2).contiguous()  # (nconf, nelec, 3)

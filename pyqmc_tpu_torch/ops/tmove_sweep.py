@@ -92,6 +92,16 @@ class FusedTmoveSweep:
                                  positions, wrap, state, rot, u_sel, u_acc)
 
     def kernel(self, params, positions, wrap, state, rot, u_sel, u_acc):
+        name, (state_out, sizes), inputs, args = self.pack(
+            params, positions, wrap, state, rot, u_sel, u_acc)  # inputs held to the end
+        _build.launch(name, positions.dtype, *args)
+        LAUNCHES.add()
+        pos_o, new_state = self.walkers.unpack(state_out, sizes, state)
+        return pos_o, wrap, new_state
+
+    def pack(self, params, positions, wrap, state, rot, u_sel, u_acc):
+        """(C entry name, (state_out, sizes), inputs, its arguments) of one
+        launch, as FusedSweep.pack."""
         nconf, nelec = positions.shape[:2]
         dtype = positions.dtype
         self.tables.check(dtype)
@@ -101,22 +111,18 @@ class FusedTmoveSweep:
                              f"got {tuple(rot.shape)}, {tuple(u_sel.shape)}, {tuple(u_acc.shape)}")
         sl_params, sl, j_params, js = self.walkers.split(params, state)
         state_in, sizes = self.walkers.pack(positions, sl, js)
-        rot_t = rot.reshape(nelec, nconf, 9).permute(0, 2, 1).reshape(9 * nelec, nconf)
-        rot_t = rot_t.to(dtype).contiguous()
+        rot_w = rot.to(dtype).permute(1, 0, 2, 3).contiguous()  # (nconf, nelec, 3, 3)
         u_sel, u_acc = u_sel.contiguous(), u_acc.contiguous()
         tab, meta = self.tables.pack(sl_params, j_params, positions.device, dtype)
+        plan = self.tables.plan_tensor(positions.device)
         state_out = torch.empty_like(state_in)
-        # w_q and r_q of every quadrature point, walker-minor
-        scratch = torch.empty((2 * self.tables.nq_total, nconf), dtype=dtype,
-                              device=positions.device)
-        check_cuda(dtype, state_in, rot_t, u_sel, u_acc, tab, meta, state_out, scratch)
-        _build.launch("pq_tmove_sweep", dtype, state_in.data_ptr(), state_out.data_ptr(),
-                      rot_t.data_ptr(), u_sel.data_ptr(), u_acc.data_ptr(), scratch.data_ptr(),
-                      tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(), nconf,
-                      state_in.shape[0], self.walkers.nmax(), self.tau)
-        LAUNCHES.add()
-        pos_o, new_state = self.walkers.unpack(state_out, sizes, state)
-        return pos_o, wrap, new_state
+        check_cuda(dtype, state_in, rot_w, u_sel, u_acc, tab, meta, plan, state_out)
+        args = (state_in.data_ptr(), state_out.data_ptr(), rot_w.data_ptr(), u_sel.data_ptr(),
+                u_acc.data_ptr(), tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(),
+                plan.data_ptr(), plan.numel(), nconf, state_in.shape[1], nelec, self.tables.nao,
+                self.tables.nprim, self.tables.nq_total, self.walkers.nmax(), self.tau)
+        return ("pq_tmove_sweep", (state_out, sizes), (state_in, rot_w, u_sel, u_acc, tab, meta,
+                                                       plan), args)
 
 
 def build_fused_tmove_sweep(wf, geometry, ecp_acc, tau, max_aux_evals=128):

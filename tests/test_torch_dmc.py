@@ -30,7 +30,7 @@ from pyqmc_tpu_torch.entry import h2o_setup
 from pyqmc_tpu_torch.method import dmc as tdmc
 from pyqmc_tpu_torch.models.jastrow import JastrowSpin
 from pyqmc_tpu_torch.models.multiply import MultiplyWF
-from pyqmc_tpu_torch.models.slater import Slater
+from pyqmc_tpu_torch.models.slater import DeterminantExpansion, Slater
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
 from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
@@ -284,7 +284,8 @@ def test_tmove_gate():
     assert build_fused_tmove_sweep(twf, Geometry(), acc, 0.02, max_aux_evals=32) is not None
     assert build_fused_tmove_sweep(twf, Geometry(), acc, 0.02, max_aux_evals=31) is None
     assert build_fused_tmove_sweep(JastrowSpin(tmol), Geometry(), acc, 0.02) is None
-    wide = Slater(tmol, (tmf.mo_coeff[0][:, :6], tmf.mo_coeff[1][:, :4]))
+    wide = Slater(tmol, None, DeterminantExpansion.single(4, 4),
+                  (tmf.mo_coeff[0][:, :6], tmf.mo_coeff[1][:, :4]))
     assert build_fused_sweep(MultiplyWF(wide, JastrowSpin(tmol)), Geometry(), 0.02,
                              mode="dmc") is None
     assert build_fused_tmove_sweep(MultiplyWF(wide, JastrowSpin(tmol)), Geometry(), acc,

@@ -110,7 +110,8 @@ def test_gate():
     _, tmf = h2o_pair()[1]
     mol = tmf.mol
     assert build_fused_sweep(JastrowSpin(mol), Geometry(), TSTEP) is None
-    wide = Slater(mol, (tmf.mo_coeff[0][:, :6], tmf.mo_coeff[1][:, :4]))
+    wide = Slater(mol, None, DeterminantExpansion.single(4, 4),
+                  (tmf.mo_coeff[0][:, :6], tmf.mo_coeff[1][:, :4]))
     assert build_fused_sweep(MultiplyWF(wide, JastrowSpin(mol)), Geometry(), TSTEP) is None
     good = Slater.from_mean_field(tmf)
     for mode in move_sweep.MODES:

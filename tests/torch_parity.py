@@ -125,6 +125,7 @@ def bc_pair():
     from pyqmc_tpu.models.slater import DeterminantExpansion
     from pyqmc_tpu.system.basis import get_basis, get_ecp
     from pyqmc_tpu.system.mole import Molecule as JMolecule
+    from pyqmc_tpu_torch.models.slater import DeterminantExpansion as TExpansion
 
     rng = np.random.default_rng(5)
     bas = {**get_basis("tpu1dz", ["B"]), **get_basis("ccecpccpvdz", ["C"])}
@@ -138,7 +139,7 @@ def bc_pair():
     jparams["wf1"]["acoeff"] = jnp.asarray(
         rng.normal(scale=0.1, size=jparams["wf1"]["acoeff"].shape))
     tmol = port_molecule(jmol)
-    twf = TMultiply(TSlater(tmol, (ca, cb)), TJastrow(tmol))
+    twf = TMultiply(TSlater(tmol, None, TExpansion.single(nup, ndn), (ca, cb)), TJastrow(tmol))
     tparams = params_from_numpy(jax.device_get(jparams), device="cpu", dtype=F64)
     return jmol, jwf, jparams, tmol, twf, tparams
 

@@ -100,27 +100,13 @@ def main():
         out[name] = {"points": M, "device_ms": cuda_ms(
             lambda: _build.launch("pq_value_mo", dtype, *args), REPS)}
 
-    # K7: the arguments of pq_pbc_sweep / pq_pbc_dmc_sweep, packed as
-    # FusedSweepPBC.kernel packs them
+    # K7: the arguments of pq_pbc_sweep / pq_pbc_dmc_sweep, packed by
+    # FusedSweepPBC.pack
     for name, mode, tau in (("pbc_sweep", "vmc", 0.5), ("pbc_dmc_sweep", "dmc", 0.02)):
         sweep = build_fused_sweep(wf, configs.geometry, tau, mode=mode)
         s2 = draw_streams(gen, 1, nelec, NCONF, tau, pos.device, dtype)
-        gauss_w = s2["gauss"][0].permute(1, 0, 2).contiguous()
-        unif_w = s2["unif"][0].t().contiguous()
-        sl_params, sl, j_params, js = sweep.walkers.split(params, state)
-        state_in, _ = sweep.walkers.pack(pos, sl, js, walker_major=True)
-        ptab, pmeta, prows = sweep.tables.pack(j_params, pos.device, dtype)
-        PR = sweep.orb._folded_coeff(sl_params, dtype)[prows].contiguous()
-        state_out = torch.empty_like(state_in)
-        wrapd = torch.empty((NCONF, nelec, 3), dtype=dtype, device="cuda")
-        sums = torch.empty((3 if mode == "dmc" else 1, NCONF), dtype=dtype, device="cuda")
-        args = (state_in.data_ptr(), state_out.data_ptr(), gauss_w.data_ptr(),
-                unif_w.data_ptr(), wrapd.data_ptr(), sums.data_ptr(), PR.data_ptr(),
-                ptab.data_ptr(), ptab.numel(), pmeta.data_ptr(), pmeta.numel(), NCONF,
-                state_in.shape[1], sweep.tables.nao, PR.shape[1], nelec, float(tau))
-        entry = "pq_pbc_dmc_sweep" if mode == "dmc" else "pq_pbc_sweep"
-        if mode == "vmc":
-            args += (sweep.drift_cutoff,)
+        entry, (_, _, _, sums), held, args = sweep.pack(params, pos, configs.wrap, state,
+                                                        s2["gauss"][0], s2["unif"][0])
         out[name] = {"device_ms": cuda_ms(lambda: _build.launch(entry, dtype, *args), REPS),
                      "acceptance": float(torch.mean(sums[0])) / nelec}
     print(json.dumps(out), flush=True)
