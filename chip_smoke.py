@@ -39,7 +39,7 @@ and periodic fixed-node DMC with T-moves, both in 10-step blocks.
      Then each kernel's time beside its plain version's (CUDA events) and
      its bound: the larger of its bytes over 3.35 TB/s and its float32
      operations over 67 TFLOP/s, both counted from this run's shapes and
-     accepted moves (`kernel_bounds`); for K1, K4 and K5, the kernels
+     accepted moves (`kernel_bounds`); for K1, K2, K4 and K5, the kernels
      redesigned for this card (a group of lanes per walker), also the
      device time of one launch from CUDA events over 50 launches of the C
      entry point back to back, the wrapper's time the same way, and the
@@ -576,8 +576,7 @@ def compare_kernels(dtype):
     for name, (nbytes, ops) in kernel_bounds(wf, ecp_acc, NCONF, accepted).items():
         ms, by = bound_ms(nbytes, ops)
         res[name].update({"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by})
-    res["redesigned"] = redesigned_times(
-        wf, Geometry(), res, {k: calls[k] for k in ("vmc_sweep", "dmc_sweep", "tmove_sweep")})
+    res["redesigned"] = redesigned_times(wf, Geometry(), res, calls)
     # the rest of a step, plain PyTorch on the main path
     res["kinetic_ms"] = cuda_ms(lambda: kinetic_energy(wf, params, state, pos), 5)
     res["coulomb_ms"] = cuda_ms(lambda: acc["energy"].coulomb.energy(pos), 5)
@@ -928,7 +927,7 @@ def compare_pbc_kernels(dtype):
 
 def redesigned_times(wf, geometry, res, calls, reps=50):
     """The kernels redesigned for this card (K3 at 252,000 and 48,000
-    points, K7 in both modes; K1, K4, K5), `calls` {name: (wrapper, its
+    points, K7 in both modes; K1, K2, K4, K5), `calls` {name: (wrapper, its
     arguments)}: the device time of one launch (CUDA events over `reps`
     launches of the C entry point, back to back after a warm-up, its
     arguments packed once), the wrapper's time (the same over wrapper
@@ -1103,8 +1102,8 @@ def main():
         print("phase 2 float64: " + json.dumps(r64), flush=True)
         r32 = compare_kernels(torch.float32)
         print("phase 2 float32: " + json.dumps(r32), flush=True)
-    print(f"phase 2: K1, K4 and K5, device (CUDA events over back-to-back launches) and wrapper "
-          f"ms, bound and its share of the device time, {card}: "
+    print(f"phase 2: K1, K2, K4 and K5, device (CUDA events over back-to-back launches) and "
+          f"wrapper ms, bound and its share of the device time, {card}: "
           f"{json.dumps(r32['redesigned'])}", flush=True)
     print("phase 2 float64 blocks: " + json.dumps(compare_blocks()), flush=True)
 
@@ -1486,7 +1485,7 @@ def main():
         check(n > 0 and dlaunches[name] > 0, f"{name} was not launched on its path")
         r = r32[name]
         trace_names = {"vmc_sweep": ("sweep_kernel",), "dmc_sweep": ("sweep_kernel",),
-                       "ecp_energy": ("ecp_partial_kernel", "ecp_reduce_kernel"),
+                       "ecp_energy": ("ecp_energy_kernel",),
                        "tmove_sweep": ("tmove_sweep_kernel",)}[name]
         entry = {
             "name": name, "route": "cuda", "source": f"pyqmc_tpu_torch/csrc/{name}.cu",

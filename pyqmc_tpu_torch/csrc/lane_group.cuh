@@ -1,5 +1,7 @@
 // Device code of the molecular kernels that give each walker a group of G
-// lanes of one warp: K1/K4 (sweep_kernel.cuh) and K5 (tmove_sweep.cu).
+// lanes of one warp: K1/K4 (sweep_kernel.cuh), K5 (tmove_sweep.cu) and K2
+// (ecp_energy.cu, which reads the plan and the AO rows but deals whole
+// quadrature points).
 //
 // A group is G = 8, 16 or 32 consecutive lanes of a warp. Its lanes share
 // the walker's state in shared memory and deal the move's work among them:
@@ -11,7 +13,7 @@
 // arithmetic), so no lane has to broadcast a sum. No block barrier is used
 // after the tables are staged.
 //
-// The arithmetic of each term is that of sj_device.cuh and gto_device.cuh,
+// The arithmetic of each term is that of sj_device.cuh and ao_shell.cuh,
 // term for term the plain version's: only the order of the sums over
 // Jastrow terms changes (a shell's primitives and the contraction's AO rows
 // are summed in order by one lane).
@@ -97,7 +99,7 @@ __host__ inline int walkers_per_block(int G, size_t base, size_t per_walker) {
 }
 
 // Primitive k of the plan at (x, y, z): c exp(-a r^2) into E[k] and, for
-// gradients, a c exp(-a r^2) into E[nprim + k] (gto_device.cuh's g0, g1 terms).
+// gradients, a c exp(-a r^2) into E[nprim + k] (ao_shell.cuh's g0, g1 terms).
 template <typename T, bool GRAD>
 __device__ __forceinline__ void prim_item(const T* tab, const int* plan, int k, T x, T y, T z,
                                           T* E) {
@@ -113,7 +115,7 @@ __device__ __forceinline__ void prim_item(const T* tab, const int* plan, int k, 
 
 // The 2L+1 spherical AOs of a shell from its radial sums g0 (and g1): the
 // monomials and their gradients, mapped with the group's cart->sph weights
-// cw (gto_device.cuh:shell_group). out[q * stride] is AO q's value and, for
+// cw (ao_shell.cuh:shell_one). out[q * stride] is AO q's value and, for
 // gradients, out[q * stride + 1..3] its gradient.
 template <typename T, int L, bool GRAD>
 __device__ __forceinline__ void shell_rows(const T* cw, T rx, T ry, T rz, T g0, T g1, T* out,
@@ -202,7 +204,7 @@ __device__ __forceinline__ void shell_item(const T* tab, const int* meta, const 
 // first the kind's e-ion pairs, then its e-e pairs (basis, other electron)
 // with every other electron at its position in pos (3 per electron),
 // count(K) items in all. The arithmetic of each term is that of
-// sj_device.cuh:jastrow_terms.
+// sj_device.cuh:basis_kind.
 template <typename T>
 struct JastrowTab {
   const T *atoms, *abas, *bbas, *acoeff, *bcoeff;

@@ -70,7 +70,7 @@
 // it through L1: four walkers' registers (4 x 128 threads at up to 128
 // registers) fill an SM's register file either way, and shared R leaves
 // the L1 to the state rows. The Jastrow's radial bases take one division
-// each (basis_recip) where sj_device.cuh's basis_eval takes six.
+// each (basis_recip) where sj_device.cuh's basis_kind takes six.
 //
 // ptxas (sm_90a): pbc_sweep_kernel<float, *> 128 registers, 64 bytes of
 // stack, no spill; <double, *> 128 registers, 284-332 bytes spilled (the
@@ -199,10 +199,10 @@ __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(PBC_GROUP) : "memory");
 }
 
-// Radial Jastrow basis: value and f'(r)/r, basis_eval's (sj_device.cuh)
+// Radial Jastrow basis: value and f'(r)/r, basis_kind's (sj_device.cuh)
 // with its divisions by rcut and r turned into products with the
 // reciprocals ircut (the table's) and ir, and one reciprocal of the
-// denominator: one division per basis where basis_eval has six, which
+// denominator: one division per basis where basis_kind has six, which
 // were most of the Jastrow's time.
 template <typename T>
 __device__ __forceinline__ void basis_recip(int kind, T param, T rcut, T ircut, T c0, T r, T ir,

@@ -1,6 +1,6 @@
 // Shared device code of the Slater-Jastrow kernels: the layout of the packed
 // parameter tables, math helpers for float/double, the Jastrow radial bases
-// and the one-electron Jastrow terms.
+// and the ECP's Legendre projectors and radial powers.
 //
 // Tables. Every kernel takes one float buffer `tab` (type T) and one int32
 // buffer `meta`, both copied into shared memory once per block. `meta`
@@ -68,22 +68,6 @@ __device__ __forceinline__ T clamp01(T x) {
   return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
 }
 
-// Copy the tables into dynamic shared memory: tab first (aligned for T),
-// meta right after it.
-template <typename T>
-__device__ __forceinline__ void load_tables(const T* __restrict__ tab_g, int ntab,
-                                            const int* __restrict__ meta_g, int nmeta,
-                                            T** tab, int** meta) {
-  extern __shared__ __align__(16) unsigned char pq_smem[];
-  T* t = reinterpret_cast<T*>(pq_smem);
-  int* m = reinterpret_cast<int*>(t + ntab);
-  for (int i = threadIdx.x; i < ntab; i += blockDim.x) t[i] = tab_g[i];
-  for (int i = threadIdx.x; i < nmeta; i += blockDim.x) m[i] = meta_g[i];
-  __syncthreads();
-  *tab = t;
-  *meta = m;
-}
-
 // Radial Jastrow basis of one kind: value and f'(r)/r (models/func3d.py).
 template <typename T, int KIND>
 __device__ __forceinline__ void basis_kind(T param, T rcut, T r, T& v, T& fo) {
@@ -111,70 +95,6 @@ __device__ __forceinline__ void basis_kind(T param, T rcut, T r, T& v, T& fo) {
     v = inside ? f : T(0);
     fo = inside ? dfdr / rsafe : T(0);
   }
-}
-
-// Radial Jastrow basis of a kind known at run time.
-template <typename T>
-__device__ __forceinline__ void basis_eval(int kind, T param, T rcut, T r, T& v, T& fo) {
-  if (kind == BASIS_POLYPADE)
-    basis_kind<T, BASIS_POLYPADE>(param, rcut, r, v, fo);
-  else
-    basis_kind<T, BASIS_CUTOFFCUSP>(param, rcut, r, v, fo);
-}
-
-// Jastrow terms of electron e (spin s) placed at (x, y, z): the e-ion sum
-// and the e-e sum over every other electron at its position in `pos`
-// (rows 3j + axis, row stride `stride`). Returns u; adds the gradient to g
-// when GRAD.
-template <typename T, bool GRAD>
-__device__ __forceinline__ T jastrow_terms(const T* tab, const int* meta, T x, T y, T z,
-                                           int e, int s, const T* pos, size_t stride,
-                                           T* g) {
-  const int natom = meta[M_NATOM], na = meta[M_NA], nb = meta[M_NB];
-  const int nup = meta[M_NUP], nelec = meta[M_NELEC];
-  const T* atoms = tab + meta[M_F_ATOMS];
-  const T* acoeff = tab + meta[M_F_ACOEFF];
-  const T* bcoeff = tab + meta[M_F_BCOEFF];
-  const T* abas = tab + meta[M_F_ABAS];
-  const T* bbas = tab + meta[M_F_BBAS];
-  const int* akind = meta + meta[M_I_AKIND];
-  const int* bkind = meta + meta[M_I_BKIND];
-  T u = T(0);
-  for (int I = 0; I < natom; ++I) {
-    const T dx = x - atoms[3 * I], dy = y - atoms[3 * I + 1], dz = z - atoms[3 * I + 2];
-    const T r = dsqrt(dx * dx + dy * dy + dz * dz);
-    for (int k = 0; k < na; ++k) {
-      T v, fo;
-      basis_eval<T>(akind[k], abas[2 * k], abas[2 * k + 1], r, v, fo);
-      const T w = acoeff[(I * na + k) * 2 + s];
-      u += w * v;
-      if (GRAD) {
-        g[0] += w * fo * dx;
-        g[1] += w * fo * dy;
-        g[2] += w * fo * dz;
-      }
-    }
-  }
-  for (int j = 0; j < nelec; ++j) {
-    if (j == e) continue;
-    const T dx = x - pos[(size_t)(3 * j) * stride];
-    const T dy = y - pos[(size_t)(3 * j + 1) * stride];
-    const T dz = z - pos[(size_t)(3 * j + 2) * stride];
-    const T r = dsqrt(dx * dx + dy * dy + dz * dz);
-    const int ch = s + (j >= nup ? 1 : 0);
-    for (int k = 0; k < nb; ++k) {
-      T v, fo;
-      basis_eval<T>(bkind[k], bbas[2 * k], bbas[2 * k + 1], r, v, fo);
-      const T w = bcoeff[k * 3 + ch];
-      u += w * v;
-      if (GRAD) {
-        g[0] += w * fo * dx;
-        g[1] += w * fo * dy;
-        g[2] += w * fo * dz;
-      }
-    }
-  }
-  return u;
 }
 
 // Legendre polynomial P_l(x), l <= 6 (observables/ecp.py legendre).

@@ -44,9 +44,11 @@ _KERNELS = {
     # as pq_vmc_sweep without drift_cutoff
     "pq_dmc_sweep": ("dmc_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _D, _P]),
-    # pos, invu, invd, rot, wvec, partial, out, tab, ntab, meta, nmeta,
-    # nelec, nconf, stream
-    "pq_ecp_energy": ("ecp_energy.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
+    # pos, pos_sw, invu, invu_sw, invu_si, invu_sj, invd, invd_sw, invd_si,
+    # invd_sj, rot, out, tab, ntab, meta, nmeta, plan, nplan, nconf, nelec,
+    # nup, ndn, nao, nq, nmax, stream
+    "pq_ecp_energy": ("ecp_energy.cu", [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P,
+                                        _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # state_in, state_out, rot, u_sel, u_acc, tab, ntab, meta, nmeta, plan,
     # nplan, nconf, nrows, nelec, nao, nprim, nq, nmax, tau, stream
     "pq_tmove_sweep": ("tmove_sweep.cu", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,

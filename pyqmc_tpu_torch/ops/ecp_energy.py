@@ -1,6 +1,6 @@
 """Kernel 2: the nonlocal ECP energy of a Slater-Jastrow wavefunction,
-hand-written in CUDA (csrc/ecp_energy.cu), with its plain PyTorch version
-beside it.
+hand-written in CUDA (csrc/ecp_energy.cu: a group of lanes per walker, one
+launch), with its plain PyTorch version beside it.
 
 Counterpart of pyqmc_tpu/ops/move_pallas.py:build_fused_ecp_energy. The
 gate is the JAX one: the `_match_sj` pattern, dense quadrature (the only
@@ -21,9 +21,38 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .move_sweep import SJTables, _factor, _match_sj, check_cuda
+from .move_sweep import (MAX_ELECTRONS_PER_SPIN, KernelUnsupported, SJTables, _factor, _match_sj,
+                         check_cuda)
 
 LAUNCHES = _build.LaunchCount()
+
+# csrc/ecp_energy.cu: lanes per walker; csrc/lane_group.cuh: threads of a
+# block and the shared memory a block may hold
+LANES = 32
+THREADS = 128
+MAX_BLOCK_SHARED = 227 * 1024
+
+
+def _up16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def block_shared(tables, itemsize):
+    """(walkers per block, dynamic shared bytes of a block) of the kernel,
+    as csrc/ecp_energy.cu (ecp_smem, launch_ecp_g) and csrc/lane_group.cuh
+    (staged_bytes, walkers_per_block) reckon them: the staged tables and
+    plan, then each walker's positions, inverses, rotations and wvec, per
+    point its T_q and Slater ratio, per point and electron a Jastrow u.
+    0 walkers: none fits."""
+    nelec, nq = tables.nup + tables.ndn, tables.nq_total
+    per_walker = itemsize * (12 * nelec + tables.nup ** 2 + tables.ndn ** 2
+                             + nelec * tables.nao + 2 * nelec * nq + nelec * (nq + 1))
+    base = (_up16(tables.ntab * itemsize + 4 * len(tables._meta))
+            + _up16(4 * len(tables.plan)))
+    walkers = THREADS // LANES
+    while walkers > 0 and base + walkers * per_walker > MAX_BLOCK_SHARED:
+        walkers -= 1
+    return walkers, base + walkers * per_walker
 
 
 def ecp_nonlocal_plain(ecp_acc, wf, params, positions, state, rot, u_sel=None):
@@ -77,29 +106,50 @@ class FusedECPEnergy:
         return ecp_nonlocal_plain(self.ecp_acc, self.wf, params, positions, state, rot)
 
     def kernel(self, params, positions, state, rot):
-        nconf, nelec = positions.shape[:2]
-        nup, ndn = self.slater.nup, self.slater.ndn
-        dtype = positions.dtype
-        self.tables.check(dtype)
-        if rot.shape != (nelec, nconf, 3, 3):
-            raise ValueError(f"rot must be (nelec, nconf, 3, 3), got {tuple(rot.shape)}")
-        sl_params, sl = _factor(self.wf, self.sl_idx, params, state)
-        j_params = _factor(self.wf, self.j_idx, params, state)[0] if self.jastrow else None
-        pos_t = positions.reshape(nconf, 3 * nelec).t().contiguous()
-        invu = sl.inv_up.reshape(nconf, nup * nup).t().contiguous()
-        invd = sl.inv_dn.reshape(nconf, ndn * ndn).t().contiguous()
-        rot_t = rot.reshape(nelec, nconf, 9).permute(0, 2, 1).reshape(9 * nelec, nconf)
-        rot_t = rot_t.to(dtype).contiguous()
-        tab, meta = self.tables.pack(sl_params, j_params, positions.device, dtype)
-        wvec = torch.empty((self.tables.nao, nelec * nconf), dtype=dtype, device=positions.device)
-        partial = torch.empty((nelec, nconf), dtype=dtype, device=positions.device)
-        out = torch.empty(nconf, dtype=dtype, device=positions.device)
-        check_cuda(dtype, pos_t, invu, invd, rot_t, tab, meta, wvec, partial, out)
-        _build.launch("pq_ecp_energy", dtype, pos_t.data_ptr(), invu.data_ptr(), invd.data_ptr(),
-                      rot_t.data_ptr(), wvec.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                      tab.data_ptr(), tab.numel(), meta.data_ptr(), meta.numel(), nelec, nconf)
+        name, out, inputs, args = self.pack(params, positions, state, rot)  # inputs held to the end
+        check_cuda(positions.dtype, out, *inputs[3:], strided=inputs[:3])
+        _build.launch(name, positions.dtype, *args)
         LAUNCHES.add()
         return out
+
+    def pack(self, params, positions, state, rot):
+        """(C entry name, out, inputs, its arguments) of one launch, as
+        FusedSweep.pack. Positions, both inverses and rot are handed over
+        where they lie, with their strides (the positions' rows of 3 and
+        rot in its (nelec, nconf, 3, 3) layout must be dense, as the
+        caller's are: only another layout is copied). Raises
+        KernelUnsupported where not one walker fits a block's shared
+        memory."""
+        nconf, nelec = positions.shape[:2]
+        dtype = positions.dtype
+        t = self.tables
+        t.check(dtype)
+        if rot.shape != (nelec, nconf, 3, 3):
+            raise ValueError(f"rot must be (nelec, nconf, 3, 3), got {tuple(rot.shape)}")
+        if block_shared(t, positions.element_size())[0] == 0:
+            raise KernelUnsupported("not one walker fits the ECP kernel's shared memory")
+        sl_params, sl = _factor(self.wf, self.sl_idx, params, state)
+        j_params = _factor(self.wf, self.j_idx, params, state)[0] if self.jastrow else None
+        if positions.stride()[1:] != (3, 1):
+            positions = positions.contiguous()
+        rot = rot.to(dtype).contiguous()
+        invs = []
+        for inv, n in ((sl.inv_up, t.nup), (sl.inv_dn, t.ndn)):
+            inv = inv.to(dtype)
+            if inv.shape[-2:] != (n, n) or inv.numel() != nconf * n * n:
+                raise ValueError(f"an inverse must be (nconf, 1, {n}, {n}), "
+                                 f"got {tuple(inv.shape)}")
+            invs.append((inv, (inv.stride(0), inv.stride(-2), inv.stride(-1))))
+        (invu, su), (invd, sd) = invs
+        tab, meta = t.pack(sl_params, j_params, positions.device, dtype)
+        plan = t.plan_tensor(positions.device)
+        out = torch.empty(nconf, dtype=dtype, device=positions.device)
+        args = (positions.data_ptr(), positions.stride(0), invu.data_ptr(), *su, invd.data_ptr(),
+                *sd, rot.data_ptr(), out.data_ptr(), tab.data_ptr(), tab.numel(),
+                meta.data_ptr(), meta.numel(), plan.data_ptr(), plan.numel(), nconf, nelec,
+                t.nup, t.ndn, t.nao, t.nq_total,
+                4 if max(t.nup, t.ndn) <= 4 else MAX_ELECTRONS_PER_SPIN)
+        return "pq_ecp_energy", out, (positions, invu, invd, rot, tab, meta, plan), args
 
 
 def build_fused_ecp_energy(wf, ecp_acc, max_aux_evals=512):

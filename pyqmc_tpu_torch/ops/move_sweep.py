@@ -40,7 +40,7 @@ DMC_LAUNCHES = _build.LaunchCount()  # dmc-mode kernel
 MODES = ("vmc", "dmc")
 
 # kernel caps (csrc/sweep_kernel.cuh and csrc/tmove_sweep.cu instantiate
-# NMAX 4 and 16; csrc/gto_device.cuh handles l <= 3; csrc/ecp_device.cuh
+# NMAX 4 and 16; csrc/lane_group.cuh handles l <= 3; csrc/ecp_device.cuh
 # MAXCHAN nonlocal channels per atom); shared memory without an opt-in
 MAX_ELECTRONS_PER_SPIN = 16
 MAX_L = 3
@@ -333,18 +333,20 @@ class SJTables:
         return self._cache[key]
 
 
-def check_cuda(dtype, *tensors):
-    """Device, dtype and contiguity checks before passing pointers to a kernel."""
+def check_cuda(dtype, *tensors, strided=()):
+    """Device, dtype and contiguity checks before passing pointers to a
+    kernel; `strided` tensors, which the kernel reads with their strides,
+    are not held to contiguity."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernels take float32 or float64, got {dtype}")
     dev = tensors[0].device
-    for t in tensors:
+    for t in (*tensors, *strided):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"kernel inputs must share one CUDA device, got {t.device}")
         if t.dtype != dtype and t.dtype != torch.int32:
             raise TypeError(f"kernel input of dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("kernel inputs must be contiguous")
 
 
 def _factor(wf, idx, params, state):

@@ -8,10 +8,11 @@ tests/conftest.py imports):
 
 float64 at a small size, so every accept decision is the same on both
 sides: positions and state to 1e-9 (absolute, and relative for inverse
-entries near a node), acceptance exactly, ECP energy to rtol 1e-9; the H2O
-kernels at 64, 37 and 6 walkers (the last block of the sweeps' 128 / G
-walkers partly empty), and K1, K4, K5 once more with 6 + 4 electrons (their
-NMAX = 16 instances); the
+entries near a node), acceptance exactly, ECP energy to rtol 1e-9 (and in
+float32 to 1e-4); the H2O kernels at 64, 37 and 6 walkers (the last block
+of 128 / G walkers partly empty), K2 also for a Slater determinant with no
+Jastrow, and K1, K2, K4, K5 once more with 6 + 4 electrons (their NMAX = 16
+instances); the
 periodic kernels K3, K6 (to 1e-9 of each entry plus the largest entry) and
 K7 in both modes (state, wrap counts; r2p and r2a in the dmc mode) on the
 diamond supercell at 37 and at 6 walkers, counts that leave the last
@@ -82,6 +83,58 @@ def test_ecp_kernel_matches_plain(cuda_h2o):
     assert bool(torch.all(torch.abs(ek - ep) <= 1e-9 * (torch.abs(ep) + scale)))
 
 
+def _ecp_matches_plain(fn, params, positions, state, rot, tol):
+    """K2 against ecp_nonlocal_plain on the same inputs, rtol `tol` with a
+    floor at the mean magnitude (walkers whose channels cancel to ~0), one
+    launch."""
+    n0 = ecp_energy.LAUNCHES.n
+    ek = fn(params, positions, state, rot)  # CUDA tensors: the wrapper launches the kernel
+    ep = ecp_energy.ecp_nonlocal_plain(fn.ecp_acc, fn.wf, params, positions, state, rot)
+    assert ecp_energy.LAUNCHES.n == n0 + 1
+    assert ek.shape == ep.shape == (positions.shape[0],) and ek.dtype == positions.dtype
+    scale = float(torch.mean(torch.abs(ep)))
+    assert scale > 1e-3  # the nonlocal part is exercised
+    assert bool(torch.all(torch.abs(ek - ep) <= tol * (torch.abs(ep) + scale)))
+
+
+@pytest.mark.cuda
+def test_ecp_kernel_float32_matches_plain(cuda_h2o):
+    """float32 to 1e-4, as chip_smoke.py phase 2 holds it."""
+    wf, params, configs, ecp_acc, streams = cuda_h2o
+    f32 = torch.float32
+    params = {k: {n: v.to(f32) for n, v in p.items()} for k, p in params.items()}
+    pos = configs.positions.to(f32)
+    fn = ecp_energy.build_fused_ecp_energy(wf, ecp_acc)
+    _ecp_matches_plain(fn, params, pos, wf.recompute(params, pos), streams["rot"][0].to(f32),
+                       1e-4)
+
+
+@pytest.mark.cuda
+def test_ecp_kernel_slater_only_matches_plain(cuda_h2o):
+    """A Slater determinant with no Jastrow factor (the tables' hasj = 0)."""
+    wf, params, configs, ecp_acc, streams = cuda_h2o
+    slater = wf.wfs[0]
+    fn = ecp_energy.build_fused_ecp_energy(slater, ecp_acc)
+    assert fn is not None and fn.jastrow is None
+    pos = configs.positions
+    _ecp_matches_plain(fn, params["wf0"], pos, slater.recompute(params["wf0"], pos),
+                       streams["rot"][0], 1e-9)
+
+
+@pytest.mark.cuda
+def test_ecp_kernel_nmax16_matches_plain():
+    """K2's NMAX = 16 instance on `_nmax16_system`, 37 walkers, float64."""
+    from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
+
+    nconf = 37
+    mol, wf, params, configs = _nmax16_system(nconf)
+    fn = ecp_energy.build_fused_ecp_energy(wf, ECPAccumulator(mol))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rot = draw_streams(gen, 1, 10, nconf, 0.5, "cuda", torch.float64)["rot"][0]
+    pos = configs.positions
+    _ecp_matches_plain(fn, params, pos, wf.recompute(params, pos), rot, 1e-9)
+
+
 @pytest.mark.cuda
 def test_dmc_sweep_kernel_matches_plain(cuda_h2o):
     """The dmc-mode sweep: the vmc checks plus r2p and r2a per walker."""
@@ -126,21 +179,17 @@ def test_tmove_kernel_matches_plain(cuda_h2o):
         assert _close(a, b, 1e-9)
 
 
-@pytest.mark.cuda
-def test_sweep_kernels_nmax16_match_plain():
-    """The NMAX = 16 instances of K1, K4 and K5: H2O with two more
-    electrons (6 up, 4 down), a Slater of 6 + 4 orbitals of the SCF (as
-    tests/test_torch_move_sweep.py's gate test builds one) times the
-    Jastrow, 37 walkers, float64, at tstep (tau) 0.5."""
+def _nmax16_system(nconf):
+    """H2O with two more electrons (6 up, 4 down), a Slater of 6 + 4
+    orbitals of the SCF (as tests/test_torch_move_sweep.py's gate test
+    builds one) times the Jastrow, float64 on the card: (mol, wf, params,
+    configs)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from pyqmc_tpu_torch.configs import initial_guess
-    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams
     from pyqmc_tpu_torch.models.jastrow import JastrowSpin
     from pyqmc_tpu_torch.models.multiply import MultiplyWF
     from pyqmc_tpu_torch.models.slater import DeterminantExpansion, Slater
-    from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
-    from pyqmc_tpu_torch.ops import tmove_sweep
     from pyqmc_tpu_torch.system.io import load_npz
     from pyqmc_tpu_torch.system.mole import Molecule
 
@@ -153,9 +202,21 @@ def test_sweep_kernels_nmax16_match_plain():
     rng = np.random.default_rng(4)
     params["wf1"]["acoeff"] = torch.as_tensor(rng.normal(scale=0.1, size=(3, 4, 2)),
                                               dtype=torch.float64, device="cuda")
-    nconf = 37
     configs = initial_guess(mol, nconf, generator=torch.Generator().manual_seed(3),
                             device="cuda", dtype=torch.float64)
+    return mol, wf, params, configs
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_nmax16_match_plain():
+    """The NMAX = 16 instances of K1, K4 and K5 on `_nmax16_system`, 37
+    walkers, float64, at tstep (tau) 0.5."""
+    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams
+    from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
+    from pyqmc_tpu_torch.ops import tmove_sweep
+
+    nconf = 37
+    mol, wf, params, configs = _nmax16_system(nconf)
     pos, wrap = configs.positions, configs.wrap
     state = wf.recompute(params, pos)
     gen = torch.Generator(device="cuda").manual_seed(5)

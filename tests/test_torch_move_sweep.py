@@ -155,7 +155,7 @@ def test_gate():
 
 def _decode_ao(tab, meta, x):
     """AO values at points x (M, 3) in concat order, read from the packed
-    tables the way csrc/gto_device.cuh reads them."""
+    tables the way csrc/lane_group.cuh and csrc/ao_shell.cuh read them."""
     ngroups, g0 = meta[move_sweep.M_NGROUPS], meta[move_sweep.M_I_GROUPS]
     rows = []
     for gi in range(ngroups):

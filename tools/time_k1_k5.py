@@ -1,8 +1,8 @@
-"""Device time of one launch of K1 (csrc/vmc_sweep.cu), K4
-(csrc/dmc_sweep.cu) and K5 (csrc/tmove_sweep.cu) at ccECP H2O's shapes,
-2048 walkers, float32, for the pyqmc_tpu_torch of a given checkout, on one
-NVIDIA GPU; also each wrapper's time and the host time of one H2O VMC and
-one DMC block.
+"""Device time of one launch of K1 (csrc/vmc_sweep.cu), K2
+(csrc/ecp_energy.cu), K4 (csrc/dmc_sweep.cu) and K5 (csrc/tmove_sweep.cu)
+at ccECP H2O's shapes, 2048 walkers, float32, for the pyqmc_tpu_torch of a
+given checkout, on one NVIDIA GPU; also each wrapper's time and the host
+time of one H2O VMC and one DMC block.
 
     python tools/time_k1_k5.py [ROOT] [LABEL]
 
@@ -14,16 +14,18 @@ with one procedure, which is how a redesign is compared with its parent in
 one call (run parent, change, change, parent). A checkout whose wrappers
 have `pack` (the lane-group kernels) is packed by them, and its kernels'
 lanes per walker (the sources' LANES) and shared bytes per block are
-reported; the one-thread-per-walker kernels of commit 6a8d10c, which have
-no `pack`, are packed by `old_pack`. The wrapper time is the same
+reported; kernels of older checkouts without `pack` (the
+one-thread-per-walker K1, K4, K5 of commit 6a8d10c; K2 before its
+lane-group redesign, with its transposed copies and scratch) are packed by
+`old_pack`. The wrapper time is the same
 procedure over calls of the wrapper's `kernel` (host packing and
 unpacking included). The blocks are a 50-step VMC block
 (make_vmc_block) and a 10-step DMC block with T-moves (make_dmc_block) of
 a fresh h2o_setup(2048, seed 11), one warm-up then three timed by the host
 clock, each ending in a synchronize. Inputs of the launches as
 chip_smoke.py phase 2: h2o_setup(2048, seed 11), Jastrow coefficients
-from seed 12, streams from seed 13; K1 at tstep 0.5, K4 and K5 at 0.02.
-Prints the card's name and power limit and one JSON line.
+from seed 12, streams from seed 13; K1 and K2 at tstep 0.5, K4 and K5 at
+0.02. Prints the card's name and power limit and one JSON line.
 """
 
 import json
@@ -43,8 +45,8 @@ import torch  # noqa: E402
 
 NCONF, REPS, TSTEP, DMC_TSTEP = 2048, 50, 0.5, 0.02
 VMC_NSTEPS, DMC_NSTEPS, NBLOCKS = 50, 10, 3
-SOURCES = {"vmc_sweep": "vmc_sweep.cu", "dmc_sweep": "dmc_sweep.cu",
-           "tmove_sweep": "tmove_sweep.cu"}
+SOURCES = {"vmc_sweep": "vmc_sweep.cu", "ecp_energy": "ecp_energy.cu",
+           "dmc_sweep": "dmc_sweep.cu", "tmove_sweep": "tmove_sweep.cu"}
 
 
 def source_lanes(name):
@@ -71,7 +73,10 @@ def shared_bytes(fn, lanes, itemsize):
     staged tables and plan, then 128 / lanes walkers' rows, as
     csrc/lane_group.cuh (staged_bytes) and the kernels' sweep_smem /
     tmove_smem lay them out (H2O's blocks are far below the 227 KB that
-    would cut the walkers per block)."""
+    would cut the walkers per block); K2's from its module's mirror of
+    ecp_smem (`block_shared`)."""
+    if not hasattr(fn, "walkers"):  # K2
+        return sys.modules[type(fn).__module__].block_shared(fn.tables, itemsize)[1]
     t, w = fn.tables, fn.walkers
     nmax, nelec = w.nmax(), t.nup + t.ndn
     nrows = 3 * nelec + t.nup ** 2 + t.ndn ** 2 + 4 + 4 * t.nup ** 2 + 4 * t.ndn ** 2 + 1
@@ -86,13 +91,35 @@ def shared_bytes(fn, lanes, itemsize):
     return base + (128 // lanes) * row * itemsize
 
 
-def old_pack(fn, params, pos, state, streams):
-    """(C entry, held tensors, arguments) of a one-thread-per-walker wrapper
-    of commit 6a8d10c (this redesign's parent; later checkouts have
-    `pack`): walker-minor state, gauss and rotations; K5 with its global
-    scratch."""
-    from pyqmc_tpu_torch.ops.move_sweep import FusedSweep
+def old_pack(fn, args):
+    """(C entry, held tensors, arguments) of a wrapper without `pack`:
+    K2 before its lane-group redesign (parent 6869c39), with the transposed
+    copies and the wvec and partial scratch its `kernel` makes; the
+    one-thread-per-walker K1, K4, K5 of commit 6a8d10c: walker-minor state,
+    gauss and rotations, K5 with its global scratch."""
+    from pyqmc_tpu_torch.ops.move_sweep import FusedSweep, _factor
 
+    if not hasattr(fn, "walkers"):  # K2
+        params, pos, state, rot = args
+        nconf, nelec = pos.shape[:2]
+        dtype, t = pos.dtype, fn.tables
+        sl_params, sl = _factor(fn.wf, fn.sl_idx, params, state)
+        j_params = _factor(fn.wf, fn.j_idx, params, state)[0] if fn.jastrow else None
+        pos_t = pos.reshape(nconf, 3 * nelec).t().contiguous()
+        invu = sl.inv_up.reshape(nconf, t.nup * t.nup).t().contiguous()
+        invd = sl.inv_dn.reshape(nconf, t.ndn * t.ndn).t().contiguous()
+        rot_t = rot.reshape(nelec, nconf, 9).permute(0, 2, 1).reshape(9 * nelec, nconf)
+        rot_t = rot_t.to(dtype).contiguous()
+        tab, meta = t.pack(sl_params, j_params, pos.device, dtype)
+        wvec = torch.empty((t.nao, nelec * nconf), dtype=dtype, device=pos.device)
+        partial = torch.empty((nelec, nconf), dtype=dtype, device=pos.device)
+        out = torch.empty(nconf, dtype=dtype, device=pos.device)
+        held = (pos_t, invu, invd, rot_t, tab, meta, wvec, partial, out)
+        return "pq_ecp_energy", held, (
+            pos_t.data_ptr(), invu.data_ptr(), invd.data_ptr(), rot_t.data_ptr(),
+            wvec.data_ptr(), partial.data_ptr(), out.data_ptr(), tab.data_ptr(), tab.numel(),
+            meta.data_ptr(), meta.numel(), nelec, nconf)
+    params, pos, _, state, *streams = args
     nconf, nelec = pos.shape[:2]
     dtype = pos.dtype
     sl_params, sl, j_params, js = fn.walkers.split(params, state)
@@ -170,6 +197,7 @@ def main():
     from pyqmc_tpu_torch.method.dmc import draw_dmc_streams
     from pyqmc_tpu_torch.method.vmc import draw_streams
     from pyqmc_tpu_torch.ops import _build
+    from pyqmc_tpu_torch.ops.ecp_energy import build_fused_ecp_energy
     from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
     from pyqmc_tpu_torch.ops.tmove_sweep import build_fused_tmove_sweep
 
@@ -178,7 +206,7 @@ def main():
     print(card, flush=True)
     dtype = torch.float32
     for cu, so in _build.build().items():
-        if cu in ("vmc_sweep.cu", "dmc_sweep.cu", "tmove_sweep.cu"):
+        if cu in SOURCES.values():
             with open(so[:-3] + ".log") as f:
                 for line in f:
                     if "Compiling entry function" in line or "registers" in line or "spill" in line:
@@ -198,26 +226,27 @@ def main():
     st = draw_streams(gen, 1, nelec, NCONF, TSTEP, pos.device, dtype)
     dst = draw_dmc_streams(gen, 1, nelec, NCONF, DMC_TSTEP, pos.device, dtype)
     ecp_acc = acc["energy"].ecp_acc
+    walk = (params, pos, configs.wrap, state)
     calls = {
         "vmc_sweep": (build_fused_sweep(wf, Geometry(), TSTEP),
-                      (st["gauss"][0], st["unif"][0])),
+                      (*walk, st["gauss"][0], st["unif"][0])),
+        "ecp_energy": (build_fused_ecp_energy(wf, ecp_acc), (params, pos, state, st["rot"][0])),
         "dmc_sweep": (build_fused_sweep(wf, Geometry(), DMC_TSTEP, mode="dmc"),
-                      (dst["gauss"][0], dst["unif"][0])),
+                      (*walk, dst["gauss"][0], dst["unif"][0])),
         "tmove_sweep": (build_fused_tmove_sweep(wf, Geometry(), ecp_acc, DMC_TSTEP),
-                        (dst["tqrot"][0], dst["u_sel"][0], dst["u_acc"][0])),
+                        (*walk, dst["tqrot"][0], dst["u_sel"][0], dst["u_acc"][0])),
     }
     out = {"label": LABEL, "card": card}
-    for name, (fn, streams) in calls.items():
+    for name, (fn, fargs) in calls.items():
         if hasattr(fn, "pack"):
-            entry, outs, held, args = fn.pack(params, pos, configs.wrap, state, *streams)
+            entry, outs, held, args = fn.pack(*fargs)
             lanes = source_lanes(name)
             res = {"lanes": lanes, "shared_bytes_per_block": shared_bytes(fn, lanes, 4)}
         else:
-            entry, held, args = old_pack(fn, params, pos, state, streams)
+            entry, held, args = old_pack(fn, fargs)
             res = {}
         res["device_ms"] = cuda_ms(lambda: _build.launch(entry, dtype, *args), REPS)
-        res["wrapper_ms"] = cuda_ms(lambda: fn.kernel(params, pos, configs.wrap, state, *streams),
-                                    REPS)
+        res["wrapper_ms"] = cuda_ms(lambda: fn.kernel(*fargs), REPS)
         out[name] = res
         del held
     out["blocks"] = time_blocks()
