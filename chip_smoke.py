@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths (pyqmc_tpu_torch, never jax), float32: on
+Drives the port's six paths (pyqmc_tpu_torch, never jax), float32: on
 ccECP/cc-pVDZ H2O Slater-Jastrow, 2048 walkers, with the energy
 accumulator and its nonlocal ECP quadrature every step, VMC in 50-step
-blocks and fixed-node DMC with T-moves (`rundmc`) in 10-step blocks; and
-on the 2x2x2 diamond-C supercell (`diamond_setup`, 500 walkers, 64
+blocks and fixed-node DMC with T-moves (`rundmc`) in 10-step blocks; on
+the 2x2x2 diamond-C supercell (`diamond_setup`, 500 walkers, 64
 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) periodic VMC
-and periodic fixed-node DMC with T-moves, both in 10-step blocks.
+and periodic fixed-node DMC with T-moves, both in 10-step blocks; and on
+the same H2O with the full-valence CASCI(8e,8o) expansion, 1,098
+determinants (`h2o_casci_setup`, 2048 walkers), VMC and DMC with T-moves.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -142,8 +144,44 @@ and periodic fixed-node DMC with T-moves, both in 10-step blocks.
      and not above the warm-up VMC energy per cell by more than 0.02 Ha
   12. the T-move sweep of one step alone (CUDA events), then one periodic
      10-step DMC block with the plain versions (make_dmc_block(fused=False))
-     and one with the kernels, timed in turns, then one kernel block under
-     torch.profiler as in phase 5
+     and one with the kernels, timed in turns, then a 2-step kernel block
+     under torch.profiler as in phase 5 (the profiler's read-back of a
+     10-step block's 1.4 million device events took minutes)
+  13. K3 at the multi-determinant path's shapes (2048 walkers of
+     h2o_casci_setup, 23 AOs, 16 columns: the energy's 98,304 ECP points
+     and one electron's 12,288 T-move points), in both layouts against its
+     plain version, float64 to 1e-9 and float32 to 1e-4 of each entry plus
+     the largest entry's magnitude; the device time of one launch (CUDA
+     events over 50 launches of the C entry point), the wrappers' times,
+     the plain version's, the bound (`value_mo_bound`) and the device ns
+     per point beside the diamond's (phase 8)
+  14. the CASCI anchor: h2o_casci_setup(jastrow=False), the bare
+     multi-determinant Slater, + vmc(), 10 blocks x 50 steps; launch counts
+     exactly 50 K3 per block (one per energy: the plain ECP chain's flat
+     ratio call) and none of the others; the mean of the blocks after the
+     first 2 within 5 x max(SEM, 1e-3) of E_CASCI (the reference's
+     criterion, tests/integration/test_casci.py) and more than 3 SEM below
+     E_HF, so that a port keeping only the leading determinant fails
+  15. multi-Slater-Jastrow VMC: h2o_casci_setup (default device) + vmc(),
+     6 blocks x 50 steps, 50 K3 per block and nothing else; the mean of the
+     blocks after the first 2 within max(5 x combined SEM, 0.005 Ha) of the
+     JAX package's CPU reference on the same schedule
+     (tools/h2o_casci_jax_reference.py) and the acceptance within 0.05 of
+     its; then one block with K3 and one inside plain_orbitals() on the same
+     streams, timed in turns: positions and acceptance identical (the sweep
+     reads no value-only orbitals), energies within 1e-5 relative; then a
+     10-step block under torch.profiler as in phase 5; then the pieces of a
+     step alone (CUDA events): the plain sweep, the kinetic, ECP and
+     Coulomb energies, the recompute
+  16. multi-Slater-Jastrow DMC: rundmc() from phase 15's walkers, 5 blocks
+     x 10 steps at tstep 0.02 with T-moves after 2 VMC warm-up blocks;
+     launch counts exactly: K3 once per energy and once per electron per
+     T-move sweep, none of K1, K2, K4, K5 (their gates take the determinant
+     of the first n orbitals only); block mean weights in (0.5, 2),
+     acceptance above 0.9, the energy of the last 3 blocks in (-17.6,
+     -16.9) Ha and at most 0.05 Ha above the warm-up VMC's; then one
+     kernel-path block timed, the T-move and drift-diffusion sweeps alone,
+     and a 2-step block under torch.profiler
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -177,6 +215,7 @@ PBC_DMC_BIG_TSTEP = 0.5
 DIAMOND_DMC_WARMUP = 4  # rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
 DIAMOND_DMC_NBLOCKS = 5
 DIAMOND_DMC_NLAST = 3  # blocks averaged for the energy check
+PBC_TRACE_NSTEPS = 2  # phase 12's traced block (141,000 device events a step)
 # tools/diamond_dmc_jax_reference.py 32 6 5 4 3 3 on the CPU, float64, the
 # same schedule: 6 runs of 32 walkers, E/cell of the last 3 blocks, its
 # standard error over the runs, and each block's mean weight (geometric
@@ -196,6 +235,21 @@ H2O_DMC_E_ONE_THREAD = -17.221627
 H2O_VMC_E = -16.987946
 H2O_DMC_E = -17.221626
 BLOCK_CHECK_NCONF = 512  # walkers of phase 2's float64 blocks (a power of 2: exact means)
+# the multi-determinant path (phases 13-16): h2o_casci_setup, 2048 walkers
+CASCI_NBLOCKS = 10  # phase 14: 50-step VMC blocks of the bare CASCI expansion
+CASCI_NWARM = 2  # blocks dropped before a mean (phases 14 and 15)
+CASCI_SJ_NBLOCKS = 6  # phase 15: 50-step multi-Slater-Jastrow VMC blocks
+CASCI_DMC_WARMUP = 2  # phase 16: rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
+CASCI_DMC_NBLOCKS = 5
+CASCI_DMC_NLAST = 3
+CASCI_TRACE_NSTEPS = 10  # phase 15's traced block (the profiler's events of a
+# 50-step block take minutes to read back)
+# tools/h2o_casci_jax_reference.py 256 10 2 8 on the CPU, float64, the same
+# schedule (tstep 0.5, 50-step blocks, the first 2 dropped): 8 runs of 256
+# walkers, the mean of their kept blocks and its standard error over the
+# runs (see PERF.md)
+CASCI_SJ_REF = {"e": -17.003278882783047, "sem": 0.0020749883021948198,
+                "acceptance": 0.6176443481445313}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -957,6 +1011,69 @@ def redesigned_times(wf, geometry, res, calls, reps=50):
     return out
 
 
+# --- phase 13: K3 at the multi-determinant path's shapes -----------------------
+
+def value_mo_bound(spec, m, ncol, itemsize=4):
+    """(bytes, operations) of one K3 launch at m points and ncol columns of
+    the basis `spec`, counted as kernel_bounds_pbc counts K3: the points,
+    the output and C read or written once, the tables; the AO evaluation
+    and the contraction."""
+    from pyqmc_tpu_torch.ops.gto_kernels import GTOTables
+
+    g = GTOTables(spec)
+    nbytes = ((3 + ncol) * m * itemsize + spec.nao * ncol * itemsize + g._tab.size * itemsize
+              + 4 * g._meta.size)
+    return nbytes, m * (ao_shell_ops(spec, 0) + 2 * spec.nao * ncol)
+
+
+def casci_k3(dtype, reps=50):
+    """K3 on the points the multi-determinant path gives it, 2048 H2O
+    walkers of h2o_casci_setup and 16 columns (8 orbitals per spin): the
+    energy's ECP quadrature (8 electrons x 6 points per walker) and one
+    electron's T-move quadrature (6 points per walker). Both layouts
+    against the plain version, to 1e-9 (float64) or 1e-4 (float32) of each
+    entry plus the largest entry's magnitude: the transposed (norb, M) one
+    the kernel writes and the row one (M, norb) of eval mode 0, which the
+    path reads. In float32 also the device time of one launch (CUDA events
+    over `reps` launches of the C entry point back to back), the wrappers'
+    times the same way, the plain version's and the bound."""
+    from pyqmc_tpu_torch.entry import h2o_casci_setup
+    from pyqmc_tpu_torch.method.vmc import draw_streams
+    from pyqmc_tpu_torch.ops import _build
+
+    _, wf, params, configs, acc = h2o_casci_setup(NCONF, device="cuda", dtype=dtype, seed=11)
+    orb = wf.wfs[0].orbitals
+    vm = orb._value_mo
+    C = torch.cat([params["wf0"]["mo_coeff_alpha"], params["wf0"]["mo_coeff_beta"]], dim=1)
+    rot = draw_streams(torch.Generator(device="cuda").manual_seed(13), 1, 8, NCONF, TSTEP,
+                       "cuda", dtype)["rot"][0]
+    ecp = acc["energy"].ecp_acc
+    pos = configs.positions
+    points = {"energy": ecp.quadrature_geometry(pos.transpose(0, 1), rot)[0].reshape(-1, 3),
+              "tmove": ecp.quadrature_geometry(pos[:, 0], rot[0])[0].reshape(-1, 3)}
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    res = {}
+    for name, X in points.items():
+        plain = vm.plain_t(X, C)
+        res[name] = {"points": X.shape[0], "columns": C.shape[1], "max_abs_err": max(
+            close_rel(f"{dtype} K3 {name} (norb, M)", vm.kernel_t(X, C), plain, tol),
+            close_rel(f"{dtype} K3 {name} (M, norb)", vm(X, C), plain.T, tol))}
+        if dtype == torch.float64:
+            continue
+        out, held, largs = vm.pack(X, C)
+        nbytes, ops = value_mo_bound(orb.spec, X.shape[0], C.shape[1])
+        bms, by = bound_ms(nbytes, ops)
+        dev = cuda_ms(lambda: _build.launch("pq_value_mo", torch.float32, *largs), reps)
+        res[name].update({
+            "device_ms": dev, "wrapper_ms": cuda_ms(lambda: vm.kernel_t(X, C), reps),
+            "wrapper_rows_ms": cuda_ms(lambda: vm(X, C), reps),
+            "plain_ms": cuda_ms(lambda: vm.plain_t(X, C), 5), "bytes": nbytes, "operations": ops,
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / dev,
+            "device_ns_per_point": dev * 1e6 / X.shape[0]})
+        del held
+    return res
+
+
 # --- traces -----------------------------------------------------------------------
 
 def traced(run):
@@ -1054,6 +1171,220 @@ def timed_in_turns(fns, run, order=("plain", "kernel", "kernel", "plain")):
         torch.cuda.synchronize()
         times[name].append(time.perf_counter() - t0)
     return float(np.mean(times["kernel"])), float(np.mean(times["plain"])), times
+
+
+def casci_phases(t_start, card, counters, per_point_64):
+    """Phases 13-16, the multi-determinant path: K3 at its shapes, the
+    CASCI anchor, multi-Slater-Jastrow VMC and DMC. `counters` {kernel:
+    launch counter}; per_point_64 the device ns per point of K3 at the
+    diamond's shapes (phase 8). Returns (K3's float64 and float32 numbers,
+    the launches of the VMC and the DMC runs, the VMC trace's kernels)."""
+    from pyqmc_tpu_torch.entry import h2o_casci_setup
+    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams, make_dmc_block, rundmc
+    from pyqmc_tpu_torch.method.vmc import draw_streams, make_vmc_block, vmc
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+    from pyqmc_tpu_torch.observables.energy import kinetic_energy
+    from pyqmc_tpu_torch.ops.move_sweep import sweep_plain
+    from pyqmc_tpu_torch.ops.tmove_sweep import tmove_sweep_plain
+    from pyqmc_tpu_torch.system.io import load_expansion_npz
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    print(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 13: K3 at the multi-determinant path's shapes against its plain version
+    c64 = casci_k3(torch.float64)
+    print("phase 13 float64: " + json.dumps(c64), flush=True)
+    c32 = casci_k3(torch.float32)
+    print(f"phase 13 float32, {card}: {json.dumps(c32)}; device ns per point "
+          f"{c32['energy']['device_ns_per_point']:.4f} (energy) and "
+          f"{c32['tmove']['device_ns_per_point']:.4f} (T-moves) at 23 AOs x 16 columns against "
+          f"{per_point_64:.4f} at the diamond's 489 AOs x 64 columns", flush=True)
+
+    print(f"phase 14 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 14: the CASCI anchor, VMC of the bare multi-determinant Slater
+    cas = load_expansion_npz()
+    mol, wf, params, configs, acc = h2o_casci_setup(NCONF, dtype=torch.float32, jastrow=False)
+    check(configs.positions.device.type == "cuda", "h2o_casci_setup's default device is not the GPU")
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    reset_counts()
+    t0 = time.perf_counter()
+    cblocks, _ = vmc(wf, params, configs, nblocks=CASCI_NBLOCKS, nsteps_per_block=NSTEPS,
+                     tstep=TSTEP, accumulators=acc, generator=gen)
+    torch.cuda.synchronize()
+    t_cas = time.perf_counter() - t0
+    claunches = read_counts()
+    for b in cblocks:
+        print(f"phase 14 block {b['block']}: E={b['energytotal']:.6f} ecp={b['energyecp']:.6f} "
+              f"acc={b['acceptance']:.4f} host time {b['block time']:.3f} s", flush=True)
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in CASCI block {b['block']}")
+    # one K3 launch per energy: the plain ECP chain's one flat ratio call
+    check(claunches == {**{k: 0 for k in counters}, "value_mo": CASCI_NBLOCKS * NSTEPS},
+          f"kernel launches on the CASCI VMC path: {claunches}")
+    e_cas = np.array([b["energytotal"] for b in cblocks[CASCI_NWARM:]])
+    m_cas, sem_cas = float(np.mean(e_cas)), float(np.std(e_cas, ddof=1) / np.sqrt(len(e_cas)))
+    print(f"phase 14: launches {claunches}, E(last {len(e_cas)} blocks)={m_cas:.6f} +- "
+          f"{sem_cas:.6f} Ha; E_CASCI {cas['e_casci']:.6f}, "
+          f"{abs(m_cas - cas['e_casci']) / max(sem_cas, 1e-3):.2f} x max(SEM, 1e-3) away; E_HF "
+          f"{cas['e_hf']:.6f}, {(cas['e_hf'] - m_cas) / sem_cas:.2f} SEM below it; {t_cas:.2f} s "
+          f"for {CASCI_NBLOCKS} blocks", flush=True)
+    check(abs(m_cas - cas["e_casci"]) <= 5 * max(sem_cas, 1e-3),
+          f"CASCI VMC energy {m_cas} +- {sem_cas} off E_CASCI {cas['e_casci']} by more than "
+          f"5 x max(SEM, 1e-3)")
+    check(cas["e_hf"] - m_cas > 3 * sem_cas,
+          f"CASCI VMC energy {m_cas} +- {sem_cas} not 3 SEM below E_HF {cas['e_hf']}")
+
+    print(f"phase 15 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 15: multi-Slater-Jastrow VMC through the entry points
+    mol, wf, params, configs, acc = h2o_casci_setup(NCONF, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    reset_counts()
+    t0 = time.perf_counter()
+    sblocks, sconfigs = vmc(wf, params, configs, nblocks=CASCI_SJ_NBLOCKS,
+                            nsteps_per_block=NSTEPS, tstep=TSTEP, accumulators=acc, generator=gen)
+    torch.cuda.synchronize()
+    t_sj = time.perf_counter() - t0
+    slaunches = read_counts()
+    for b in sblocks:
+        print(f"phase 15 block {b['block']}: E={b['energytotal']:.6f} ecp={b['energyecp']:.6f} "
+              f"ke={b['energyke']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in multi-Slater-Jastrow block {b['block']}")
+    check(slaunches == {**{k: 0 for k in counters}, "value_mo": CASCI_SJ_NBLOCKS * NSTEPS},
+          f"kernel launches on the multi-Slater-Jastrow VMC path: {slaunches}")
+    e_sj = np.array([b["energytotal"] for b in sblocks[CASCI_NWARM:]])
+    m_sj, sem_sj = float(np.mean(e_sj)), float(np.std(e_sj, ddof=1) / np.sqrt(len(e_sj)))
+    a_sj = float(np.mean([b["acceptance"] for b in sblocks[CASCI_NWARM:]]))
+    sref = CASCI_SJ_REF
+    swindow = max(5 * float(np.hypot(sem_sj, sref["sem"])), 0.005)
+    print(f"phase 15: launches {slaunches}, E(last {len(e_sj)} blocks)={m_sj:.6f} +- "
+          f"{sem_sj:.6f} Ha, acc={a_sj:.4f}; JAX CPU reference {sref['e']:.6f} +- "
+          f"{sref['sem']:.6f} Ha, acc {sref['acceptance']:.4f}; window {swindow:.6f} Ha; "
+          f"{t_sj:.2f} s for {CASCI_SJ_NBLOCKS} blocks", flush=True)
+    check(abs(m_sj - sref["e"]) <= swindow,
+          f"multi-Slater-Jastrow VMC energy {m_sj} off the JAX reference {sref['e']} by more "
+          f"than {swindow}")
+    check(abs(a_sj - sref["acceptance"]) <= 0.05,
+          f"multi-Slater-Jastrow acceptance {a_sj} off the JAX reference's {sref['acceptance']}")
+    # one block with K3 and one without, on the same streams, timed in turns
+    sblock = make_vmc_block(wf, acc, sconfigs.geometry, TSTEP, NSTEPS)
+    sst = draw_streams(gen, NSTEPS, 8, NCONF, TSTEP, "cuda", torch.float32)
+    sout = {}
+
+    def plain_block():
+        with plain_orbitals():
+            return sblock(params, sconfigs.positions, sconfigs.wrap, gen, streams=sst)
+
+    sfns = {"kernel": lambda: sblock(params, sconfigs.positions, sconfigs.wrap, gen, streams=sst),
+            "plain": plain_block}
+    reset_counts()
+    stk, stp, stimes = timed_in_turns(sfns, lambda name, fn: sout.__setitem__(name, fn()),
+                                      order=("plain", "kernel"))
+    check(read_counts() == {**{k: 0 for k in counters}, "value_mo": NSTEPS},
+          f"the multi-Slater-Jastrow blocks' launches: {read_counts()} (the plain one must "
+          "launch none)")
+    (kp, _, kavg), (pp, _, pavg) = sout["kernel"], sout["plain"]
+    check(torch.equal(kp, pp), "the K3 and plain multi-Slater-Jastrow blocks moved differently")
+    check(float(kavg["acceptance"]) == float(pavg["acceptance"]),
+          f"acceptance {float(kavg['acceptance'])} with K3, {float(pavg['acceptance'])} without")
+    rel = {k: abs(float(kavg[k]) - float(pavg[k])) / abs(float(pavg[k]))
+           for k in kavg if k.startswith("energy") and k != "energyii"}
+    check(all(r <= 1e-5 for r in rel.values()), f"K3 against plain block energies: {rel}")
+    print(f"phase 15: {NSTEPS}-step multi-Slater-Jastrow block with K3 {stk:.4f} s "
+          f"({NCONF * NSTEPS / stk:.1f} walker-steps/s), plain orbitals {stp:.4f} s "
+          f"({NCONF * NSTEPS / stp:.1f} walker-steps/s); positions and acceptance identical, "
+          f"energies' relative differences {json.dumps(rel)}", flush=True)
+    tblock = make_vmc_block(wf, acc, sconfigs.geometry, TSTEP, CASCI_TRACE_NSTEPS)
+    ours_sj = report_trace(
+        "phase 15", f"{CASCI_TRACE_NSTEPS}-step multi-Slater-Jastrow VMC block",
+        CASCI_TRACE_NSTEPS, traced(lambda: tblock(params, sconfigs.positions, sconfigs.wrap, gen)),
+        stk * CASCI_TRACE_NSTEPS / NSTEPS)
+    # the pieces of a step, each alone (CUDA events, host work included)
+    spos, swrap = sconfigs.positions, sconfigs.wrap
+    sstate = wf.recompute(params, spos)
+    ecp = acc["energy"].ecp_acc
+    pieces = {
+        "vmc_sweep_ms": cuda_ms(lambda: sweep_plain(wf, sconfigs.geometry, TSTEP, 1.0, params, spos,
+                                                    swrap, sstate, sst["gauss"][0],
+                                                    sst["unif"][0]), 2),
+        "kinetic_ms": cuda_ms(lambda: kinetic_energy(wf, params, sstate, spos), 3),
+        "ecp_ms": cuda_ms(lambda: ecp(wf, params, sstate, spos, sst["rot"][0]), 3),
+        "coulomb_ms": cuda_ms(lambda: acc["energy"].coulomb.energy(spos), 3),
+        "recompute_ms": cuda_ms(lambda: wf.recompute(params, spos), 3)}
+    print(f"phase 15: pieces of a step alone, ms: {json.dumps(pieces)}", flush=True)
+
+    print(f"phase 16 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 16: multi-Slater-Jastrow DMC with T-moves, from phase 15's walkers
+    reset_counts()
+    t0 = time.perf_counter()
+    mblocks, mconfigs, mweights = rundmc(
+        wf, params, sconfigs,
+        nblocks=CASCI_DMC_NBLOCKS, nsteps_per_block=DMC_NSTEPS, tstep=DMC_TSTEP,
+        energy_acc=acc["energy"], generator=gen, warmup_vmc_blocks=CASCI_DMC_WARMUP)
+    torch.cuda.synchronize()
+    t_mdmc = time.perf_counter() - t0
+    mlaunches = read_counts()
+    for b in mblocks:
+        print(f"phase 16 block {b['block']}: E={b['energytotal']:.6f} w={b['weight']:.5f} "
+              f"e_trial={b['e_trial']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    # K3 once per energy (the warm-up's steps, the energy that sets e_trial,
+    # per block its first and one per step) and once per electron of each
+    # T-move sweep (the dense quadrature's ratios)
+    nwarm = CASCI_DMC_WARMUP * 10
+    k3_block = 1 + DMC_NSTEPS * (1 + 8)
+    mexpect = {**{k: 0 for k in counters},
+               "value_mo": nwarm + 1 + CASCI_DMC_NBLOCKS * k3_block}
+    check(mlaunches == mexpect,
+          f"kernel launches on the multi-Slater-Jastrow DMC path: {mlaunches}, expected {mexpect}")
+    for b in mblocks:
+        check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
+        check(0.5 < b["weight"] < 2.0, f"block mean weight {b['weight']} outside (0.5, 2)")
+        check(b["acceptance"] > 0.9, f"DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(mweights))) and bool(torch.all(mweights > 0)),
+          "final multi-Slater-Jastrow weights are not finite and positive")
+    e_mdmc = float(np.mean([b["energytotal"] for b in mblocks[-CASCI_DMC_NLAST:]]))
+    e_mwarm = 2 * mblocks[0]["e_est"] - mblocks[0]["energytotal"]
+    check(-17.6 < e_mdmc < -16.9, f"DMC energy {e_mdmc} outside (-17.6, -16.9) Ha")
+    check(e_mdmc < e_mwarm + 0.05, f"DMC energy {e_mdmc} above the warm-up VMC energy {e_mwarm}")
+    mfn = make_dmc_block(wf, acc["energy"], mconfigs.geometry, DMC_TSTEP, DMC_NSTEPS)[0]
+    mlast = mblocks[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, _, mavg = mfn(params, mconfigs.positions, mconfigs.wrap, mweights, gen,
+                        mlast["e_trial"], mlast["e_est"], 0.5)
+    check(bool(torch.isfinite(mavg["energytotal"])), "non-finite timed DMC block energy")
+    torch.cuda.synchronize()
+    t_mblock = time.perf_counter() - t0
+    print(f"phase 16: launches {mlaunches} ({k3_block} K3 per block), E(last "
+          f"{CASCI_DMC_NLAST} blocks)={e_mdmc:.6f} Ha, warm-up VMC E={e_mwarm:.6f} Ha, "
+          f"{t_mdmc:.2f} s for {CASCI_DMC_WARMUP} warm-up + {CASCI_DMC_NBLOCKS} DMC blocks; one "
+          f"{DMC_NSTEPS}-step block {t_mblock:.4f} s ({NCONF * DMC_NSTEPS / t_mblock:.1f} "
+          f"walker-steps/s)", flush=True)
+    dst = draw_dmc_streams(gen, 1, 8, NCONF, DMC_TSTEP, "cuda", torch.float32)
+    mpos, mwrap = mconfigs.positions, mconfigs.wrap
+    mstate = wf.recompute(params, mpos)
+    pieces.update({
+        "tmove_sweep_ms": cuda_ms(lambda: tmove_sweep_plain(
+            wf, mconfigs.geometry, ecp, DMC_TSTEP, params, mpos, mwrap, mstate, dst["tqrot"][0],
+            dst["u_sel"][0], dst["u_acc"][0]), 2),
+        "dmc_sweep_ms": cuda_ms(lambda: sweep_plain(
+            wf, mconfigs.geometry, DMC_TSTEP, 1.0, params, mpos, mwrap, mstate, dst["gauss"][0],
+            dst["unif"][0], mode="dmc"), 2)})
+    print(f"phase 16: the T-move and drift-diffusion sweeps alone, ms: "
+          f"{pieces['tmove_sweep_ms']:.2f}, {pieces['dmc_sweep_ms']:.2f}", flush=True)
+    mtrace = make_dmc_block(wf, acc["energy"], mconfigs.geometry, DMC_TSTEP, PBC_TRACE_NSTEPS)[0]
+    report_trace("phase 16", f"{PBC_TRACE_NSTEPS}-step multi-Slater-Jastrow DMC block",
+                 PBC_TRACE_NSTEPS, traced(lambda: mtrace(params, mpos, mwrap, mweights, gen,
+                                                         mlast["e_trial"], mlast["e_est"], 0.5)),
+                 t_mblock * PBC_TRACE_NSTEPS / DMC_NSTEPS)
+    return c64, c32, slaunches, mlaunches, ours_sj
 
 
 def main():
@@ -1456,8 +1787,14 @@ def main():
           f"({DIAMOND_NCONF * DMC_NSTEPS / qtk:.1f} walker-steps/s), plain {qtp:.4f} s "
           f"({DIAMOND_NCONF * DMC_NSTEPS / qtp:.1f} walker-steps/s); runs {json.dumps(qtimes)}",
           flush=True)
-    ours_qdmc = report_trace("phase 12", "kernel periodic DMC block", DMC_NSTEPS,
-                             traced(lambda: qdmc_block("traced", qfns["kernel"])), qtk)
+    qtrace = make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP, PBC_TRACE_NSTEPS)[0]
+    ours_qdmc = report_trace("phase 12", f"{PBC_TRACE_NSTEPS}-step kernel periodic DMC block",
+                             PBC_TRACE_NSTEPS, traced(lambda: qdmc_block("traced", qtrace)),
+                             qtk * PBC_TRACE_NSTEPS / DMC_NSTEPS)
+
+    per_point_64 = (p32["redesigned"]["value_mo"]["device_ms"] * 1e6
+                    / p32["redesigned"]["value_mo"]["points"])
+    c64, c32, slaunches, mlaunches, ours_sj = casci_phases(t_start, card, counters, per_point_64)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -1536,6 +1873,16 @@ def main():
             h = p32["value_mo_h2o"]
             entry.update({"h2o_ms": h["ms"], "h2o_plain_ms": h["plain_ms"],
                           "h2o_bound_ms": h["bound_ms"], "h2o_max_abs_err": h["max_abs_err"]})
+            # the multi-determinant path (phases 13-16)
+            entry.update({"launches_casci_vmc": slaunches[name],
+                          "launches_casci_dmc": mlaunches[name],
+                          "device_ms_casci_vmc": device_ms(ours_sj, f"{name}_kernel")})
+            for shape, c in c32.items():
+                entry.update({f"casci_{shape}_{k}": c[k] for k in (
+                    "points", "columns", "device_ms", "wrapper_ms", "wrapper_rows_ms", "plain_ms",
+                    "bound_ms", "bound_by", "bound_share")})
+                entry[f"casci_{shape}_max_abs_err"] = c["max_abs_err"]
+                entry[f"casci_{shape}_max_abs_err_float64"] = c64[shape]["max_abs_err"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,10 @@
 The JAX side hands over numpy: `jax.device_get(tree)` or `np.asarray` on
 each leaf. Layouts are the JAX package's at every function here, so a
 MultiplyWF(Slater, JastrowSpin) parameter tree
-{"wf0": {det_coeff, mo_coeff_alpha, mo_coeff_beta}, "wf1": {acoeff
-(natom, na, 2), bcoeff (nb, 3)}} keeps its keys and shapes.
+{"wf0": {det_coeff (ndet,), mo_coeff_alpha (nao, norb_up), mo_coeff_beta},
+"wf1": {acoeff (natom, na, 2), bcoeff (nb, 3)}} keeps its keys and shapes,
+for any determinant expansion: the CASCI(8e,8o) H2O expansion's det_coeff
+is (1098,) and its state's inv_up (nconf, 70, 4, 4).
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def params_to_numpy(tree):
 
 
 def slater_state_from_numpy(st, device=None, dtype=None) -> SlaterState:
-    """A JAX SlaterState (fields as numpy arrays) -> the port's SlaterState;
+    """A JAX SlaterState (fields as numpy arrays) -> the port's SlaterState,
+    every unique spin-determinant's inverse, phase and log|det| included;
     the same fields serve molecular and periodic (k-point) orbitals."""
     return SlaterState(*(_t(getattr(st, f), device, dtype) for f in SlaterState._fields))
 

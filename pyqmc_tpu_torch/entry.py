@@ -8,6 +8,15 @@ accumulator and its dense nonlocal ECP quadrature.
     blocks, configs = vmc(wf, params, configs, nblocks=4,
                           nsteps_per_block=50, accumulators=acc)
 
+`h2o_casci_setup`: the same H2O with the full-valence CASCI(8e,8o)
+expansion (1,098 determinants over the first 8 MOs, the committed
+`data/h2o_ccecp_cas88.npz`) in place of the single determinant,
+MultiplyWF(Slater(mol, None, expansion, (ca, ca), det_coeff), JastrowSpin);
+outside the gates of K1, K2, K4 and K5, so its sweeps, T-moves and ECP
+energy are the plain versions, whose float32 orbital values run on K3.
+
+    mol, wf, params, configs, acc = h2o_casci_setup(nconf=2048)
+
 `diamond_setup` (counterpart of benchmarks/c_solid_benchmark.py:123-154,
 the TRIM branch): the 2x2x2 supercell of ccECP diamond-C, 16 atoms and 64
 valence electrons, k-point Slater (8 TRIM k-points x 4 occupied orbitals
@@ -31,7 +40,8 @@ from .models.multiply import MultiplyWF
 from .models.orbitals import KPointOrbitals
 from .models.slater import DeterminantExpansion, Slater
 from .observables.accumulators import EnergyAccumulator
-from .system.io import DIAMOND_PRIMITIVE, H2O_CCECP, load_cell_npz, load_npz
+from .system.io import (DIAMOND_PRIMITIVE, H2O_CAS88, H2O_CCECP, load_cell_npz,
+                        load_expansion_npz, load_npz)
 from .system.supercell import get_supercell
 from .utils.dtypes import real_dtype, resolve_device
 from .wftools import default_jastrow_basis
@@ -52,6 +62,29 @@ def h2o_setup(nconf, device=None, dtype=None, seed=0, path=H2O_CCECP):
                             device=device, dtype=dtype)
     acc = {"energy": EnergyAccumulator(mol)}
     return mol, wf, params, configs, acc
+
+
+def h2o_casci_setup(nconf, device=None, dtype=None, seed=0, jastrow=True):
+    """(mol, wf, params, configs, accumulators) of ccECP H2O with its
+    CASCI(8e,8o) expansion over the first ncas orbitals of the SCF, times
+    JastrowSpin (jastrow=False: the bare multi-determinant
+    Slater, whose VMC energy is the CASCI energy). Device, dtype and
+    walkers as in h2o_setup; the energy accumulator is h2o_setup's, dense
+    nonlocal ECP every step."""
+    device = resolve_device(device)
+    dtype = dtype or real_dtype(device)
+    mol, mf = load_npz(H2O_CCECP)
+    d = load_expansion_npz(H2O_CAS88)
+    exp = DeterminantExpansion(occ_up=d["occ_up"], occ_dn=d["occ_dn"], map_up=d["map_up"],
+                               map_dn=d["map_dn"])
+    ca = mf.mo_coeff[0][:, :d["ncas"]]
+    wf = Slater(mol, None, exp, (ca, ca), det_coeff=d["det_coeff"])
+    if jastrow:
+        wf = MultiplyWF(wf, JastrowSpin(mol))
+    params = wf.make_params(device, dtype)
+    configs = initial_guess(mol, nconf, generator=torch.Generator().manual_seed(seed),
+                            device=device, dtype=dtype)
+    return mol, wf, params, configs, {"energy": EnergyAccumulator(mol)}
 
 
 def diamond_setup(nconf, device=None, dtype=None, seed=0, path=DIAMOND_PRIMITIVE):

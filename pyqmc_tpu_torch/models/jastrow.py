@@ -149,11 +149,52 @@ class JastrowSpin:
         cur = positions[:, list(es)].transpose(0, 1)[:, :, None, :]  # (k, nconf, 1, 3)
         return torch.exp(u_at(aux) - u_at(cur))
 
+    def testvalue_many(self, params, state, epos):
+        """exp(dU_e) for each electron e moved to epos (nconf, 3), one at a
+        time: (nconf, nelec)."""
+        positions = state.positions
+        atoms, spin = self._consts(epos)
+        a_coeff, b_coeff = params["acoeff"], params["bcoeff"]
+        # e-ion terms at epos for either spin, and at each electron's own position
+        d_ei = self._mi(epos[:, None, :] - atoms[None])
+        a_new = func3d.eval_basis_value(self.a_basis, torch.sqrt(torch.sum(d_ei * d_ei, dim=-1)))
+        a_eps = torch.einsum("cIk,Iks->cs", a_new, a_coeff)  # (nconf, 2)
+        d_cur = self._mi(positions[:, :, None, :] - atoms[None, None])
+        a_cur = func3d.eval_basis_value(self.a_basis, torch.sqrt(torch.sum(d_cur * d_cur, dim=-1)))
+        a_old = torch.einsum("cnIk,Ikn->cn", a_cur, a_coeff[:, :, spin])
+        # e-e terms at epos: T_s = sum_j bcoeff[k, s + spin_j] b_k(|epos - r_j|),
+        # less the term of e itself (channel 2 spin_e)
+        d_ee = self._mi(epos[:, None, :] - positions)
+        b_new = func3d.eval_basis_value(self.b_basis, torch.sqrt(torch.sum(d_ee * d_ee, dim=-1)))
+        chans = spin[None, :] + torch.arange(2, device=epos.device)[:, None]  # (2, nelec)
+        T = torch.einsum("cjk,ksj->cs", b_new, b_coeff[:, chans])
+        sub = torch.einsum("cek,ke->ce", b_new, b_coeff[:, 2 * spin])
+        u_new = a_eps[:, spin] + T[:, spin] - sub
+        # e-e terms at the current positions, per electron
+        d_full = self._mi(positions[:, None, :, :] - positions[:, :, None, :])
+        b_full = func3d.eval_basis_value(self.b_basis,
+                                         torch.sqrt(torch.sum(d_full * d_full, dim=-1)))
+        mask = 1.0 - torch.eye(self.nelec, dtype=epos.dtype, device=epos.device)
+        b_old = torch.einsum("cijk,kij,ij->ci", b_full, b_coeff[:, spin[:, None] + spin[None, :]],
+                             mask)
+        return torch.exp(u_new - (a_old + b_old))
+
     def gradient_value(self, params, state, e, epos):
         u_new, g, _ = self._delta_terms(params, state.positions, e, epos, True)
         u_old, _, _ = self._delta_terms(params, state.positions, e, state.positions[:, e, :], False)
         du = u_new - u_old
         return g, torch.exp(du), {"du": du, "epos": epos}
+
+    def gradient(self, params, state, e, epos):
+        return self._delta_terms(params, state.positions, e, epos, True)[1]
+
+    def gradient_value_pair(self, params, state, e, epos_old, epos_new):
+        """(grad at epos_old, grad at epos_new, ratio new / old, saved at
+        epos_new) from one delta-terms pass over both positions."""
+        X = torch.stack([epos_old, epos_new], dim=1)
+        u, g, _ = self._delta_terms(params, state.positions, e, X, True)
+        du = u[:, 1] - u[:, 0]
+        return g[:, 0], g[:, 1], torch.exp(du), {"du": du, "epos": epos_new}
 
     def move_begin(self, params, state, e, epos):
         """One delta-terms pass at the current position gives the drift
@@ -196,3 +237,21 @@ class JastrowSpin:
         newpos = state.positions.clone()
         newpos[:, e, :] = torch.where(mask[:, None], epos, state.positions[:, e, :])
         return JastrowState(positions=newpos, u=torch.where(mask, state.u + saved["du"], state.u))
+
+    def pgradient(self, params, positions):
+        """d log psi / d params per walker; U is linear in its coefficients:
+        dU/dacoeff[I, k, s] = sum_{i: spin_i = s} a_k(r_iI) (nconf, natom,
+        na, 2), dU/dbcoeff[k, ch] = sum_{i<j: ch(i, j) = ch} b_k(r_ij)
+        (nconf, nb, 3)."""
+        atoms, spin = self._consts(positions)
+        dtype = positions.dtype
+        d_ei = self._mi(positions[:, :, None, :] - atoms[None, None])
+        a_vals = func3d.eval_basis_value(self.a_basis, torch.sqrt(torch.sum(d_ei * d_ei, dim=-1)))
+        sone = (spin[:, None] == torch.arange(2, device=positions.device)[None, :]).to(dtype)
+        d_ee = self._mi(positions[:, None, :, :] - positions[:, :, None, :])
+        b_vals = func3d.eval_basis_value(self.b_basis, torch.sqrt(torch.sum(d_ee * d_ee, dim=-1)))
+        iu = torch.triu_indices(self.nelec, self.nelec, offset=1, device=positions.device)
+        chan = (spin[:, None] + spin[None, :])[iu[0], iu[1]]
+        chone = (chan[:, None] == torch.arange(3, device=positions.device)[None, :]).to(dtype)
+        return {"acoeff": torch.einsum("ceIk,es->cIks", a_vals, sone),
+                "bcoeff": torch.einsum("cpk,ph->ckh", b_vals[:, iu[0], iu[1], :], chone)}

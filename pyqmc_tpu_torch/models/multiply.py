@@ -1,5 +1,6 @@
 """Product wavefunction Psi = prod_i psi_i (counterpart of
-pyqmc_tpu/models/multiply.py, without parameter gradients).
+pyqmc_tpu/models/multiply.py, without the (re, im) pair methods of the
+complex pair wavefunctions).
 
 Parameters are namespaced {"wf0": ..., "wf1": ...}; states are tuples. The
 laplacian cross term uses sum_{i != j} g_i.g_j = |sum_i g_i|^2 - sum_i |g_i|^2.
@@ -83,6 +84,42 @@ class MultiplyWF:
             saved.append(sv)
         return ratio, tuple(saved)
 
+    def testvalue_many(self, params, state, epos):
+        ratio = None
+        for w, p, s in zip(self.wfs, self._split(params), state):
+            r = w.testvalue_many(p, s, epos)
+            ratio = r if ratio is None else ratio * r
+        return ratio
+
+    def gradient(self, params, state, e, epos):
+        g = None
+        for w, p, s in zip(self.wfs, self._split(params), state):
+            gi = w.gradient(p, s, e, epos)
+            g = gi if g is None else g + gi
+        return g
+
+    def gradient_current(self, params, state, e, epos):
+        """grad log Psi at electron e's current position `epos`; factors
+        with an orbital cache (Slater.gradient_current) skip their AO
+        evaluation, the rest evaluate at epos."""
+        g = None
+        for w, p, s in zip(self.wfs, self._split(params), state):
+            gi = (w.gradient_current(p, s, e, epos) if hasattr(w, "gradient_current")
+                  else w.gradient(p, s, e, epos))
+            g = gi if g is None else g + gi
+        return g
+
+    def gradient_value_pair(self, params, state, e, epos_old, epos_new):
+        go = gn = ratio = None
+        saved = []
+        for w, p, s in zip(self.wfs, self._split(params), state):
+            goi, gni, ri, svi = w.gradient_value_pair(p, s, e, epos_old, epos_new)
+            go = goi if go is None else go + goi
+            gn = gni if gn is None else gn + gni
+            ratio = ri if ratio is None else ratio * ri
+            saved.append(svi)
+        return go, gn, ratio, tuple(saved)
+
     def testvalue_aux_all(self, params, state, aux, es=None):
         ratio = None
         for w, p, s in zip(self.wfs, self._split(params), state):
@@ -141,3 +178,7 @@ class MultiplyWF:
     def updateinternals(self, params, state, e, epos, mask, saved):
         return tuple(w.updateinternals(p, s, e, epos, mask, sv)
                      for w, p, s, sv in zip(self.wfs, self._split(params), state, saved))
+
+    def pgradient(self, params, positions):
+        return {f"wf{i}": w.pgradient(p, positions)
+                for i, (w, p) in enumerate(zip(self.wfs, self._split(params)))}

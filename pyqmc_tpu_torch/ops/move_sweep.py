@@ -148,15 +148,9 @@ def _match_sj(wf, geometry):
     nup, ndn = slater.nup, slater.ndn
     if nup == 0 or ndn == 0:
         return None
-    # One determinant whose occupation is the first n orbitals. The port's
-    # Slater builds only DeterminantExpansion.single today, so these two
-    # checks start to decide once multi-determinant expansions are ported.
-    if len(exp.map_up) != 1 or exp.occ_up.shape[0] != 1 or exp.occ_dn.shape[0] != 1:
-        return None
-    if slater.orbitals.norb != (nup, ndn):
-        return None
-    if not (np.array_equal(exp.occ_up[0], np.arange(nup))
-            and np.array_equal(exp.occ_dn[0], np.arange(ndn))):
+    # one determinant whose occupation is the first n orbitals, so that the
+    # orbital cache (all norb orbitals) is the kernels' occupied columns
+    if not exp.is_first_n() or slater.orbitals.norb != (nup, ndn):
         return None
     if jastrow is not None:
         if any(b.kind not in ("polypade", "cutoffcusp")

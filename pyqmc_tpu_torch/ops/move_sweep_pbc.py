@@ -91,12 +91,7 @@ def _match_sj_pbc(wf, geometry):
     nup, ndn = slater.nup, slater.ndn
     if nup == 0 or ndn == 0:
         return None
-    if len(exp.map_up) != 1 or exp.occ_up.shape[0] != 1 or exp.occ_dn.shape[0] != 1:
-        return None
-    if orb.norb != (nup, ndn):
-        return None
-    if not (np.array_equal(exp.occ_up[0], np.arange(nup))
-            and np.array_equal(exp.occ_dn[0], np.arange(ndn))):
+    if not exp.is_first_n() or orb.norb != (nup, ndn):
         return None
     if jastrow is not None:
         if any(b.kind not in ("polypade", "cutoffcusp") for b in jastrow.a_basis + jastrow.b_basis):

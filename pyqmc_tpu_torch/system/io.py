@@ -27,6 +27,10 @@ from .mole import Cell, MeanField, Molecule, Shell
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 H2O_CCECP = os.path.join(DATA_DIR, "h2o_ccecp-ccpvdz_ccecp_scf.npz")
+# the full-valence CASCI(8e,8o) expansion of that H2O (1,098 determinants
+# over its first 8 MOs), written by tools/h2o_casci_data.py with the JAX
+# package's run_casci
+H2O_CAS88 = os.path.join(DATA_DIR, "h2o_ccecp_cas88.npz")
 # KRKS diamond-C primitive cell, ccECP, 2x2x2 TRIM k-mesh (a byte-for-byte
 # copy of the JAX package's test fixture tests/files/diamond_primitive.npz)
 DIAMOND_PRIMITIVE = os.path.join(DATA_DIR, "diamond_primitive.npz")
@@ -103,6 +107,19 @@ def load_cell_npz(path: str = DIAMOND_PRIMITIVE):
                 d["atom_coords"], basis_from_pyscf_json(bytes(d["basis_json"]).decode()),
                 d["lattice"], ecp=ecp or None, spin=int(d["spin"]))
     return cell, {"kpts": d["kpts"], "mo_coeff": d["mo_coeff"], "e_tot": float(d["e_tot"])}
+
+
+def load_expansion_npz(path: str = H2O_CAS88):
+    """A determinant expansion written by tools/h2o_casci_data.py, as a dict
+    of numpy arrays and floats: occ_up, occ_dn, map_up, map_dn (int64),
+    det_coeff, e_casci and e_hf (Ha), ncas, nelecas, tol."""
+    with np.load(path, allow_pickle=False) as z:
+        d = {k: z[k] for k in z.files}
+    out = {k: np.asarray(d[k], dtype=np.int64) for k in ("occ_up", "occ_dn", "map_up", "map_dn")}
+    out.update(det_coeff=np.asarray(d["det_coeff"], dtype=np.float64),
+               e_casci=float(d["e_casci"]), e_hf=float(d["e_hf"]), ncas=int(d["ncas"]),
+               nelecas=tuple(int(n) for n in d["nelecas"]), tol=float(d["tol"]))
+    return out
 
 
 def load_npz(path: str = H2O_CCECP):

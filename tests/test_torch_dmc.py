@@ -38,7 +38,7 @@ from pyqmc_tpu_torch.ops.tmove_sweep import FusedTmoveSweep, build_fused_tmove_s
 from pyqmc_tpu_torch.utils.dtypes import NoCudaDeviceError
 
 from .torch_parity import (F64, bc_pair, compile_quick, diamond_cells, gamma_params,
-                           gamma_wf_objects, h2o_pair, h2o_params, h2o_wf_objects, jax_rotations,
+                           gamma_wf_objects, h2o_pair, h2o_params, h2o_wf_objects, jax_ecp_draws,
                            walkers)
 
 TSTEP, NSTEPS, NCONF = 0.3, 2, 48
@@ -178,23 +178,29 @@ def _jax_block(tmoves):
 
 def jax_dmc_streams(key, nelec, nconf, tmoves, dtype=jnp.float64):
     """The draws of method/dmc.py's block (:220-250), as numpy."""
+    return {k: np.asarray(v) for k, v in _jax_dmc_draws(key, nelec, nconf, tmoves, dtype).items()}
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _jax_dmc_draws(key, nelec, nconf, tmoves, dtype):
     kg, ku, kt, ke, _ = jax.random.split(key, 5)
-    ekeys = jax.random.split(ke, NSTEPS)
+
+    def rotations(k):  # the energy's: one per electron from fold_in(k, 1000 + e)
+        return jax_ecp_draws(k, nelec, nconf)[0]
+
     streams = {
         "gauss": jax.random.normal(kg, (NSTEPS, nelec, nconf, 3), dtype) * jnp.sqrt(TSTEP),
         "unif": jax.random.uniform(ku, (NSTEPS, nelec, nconf), dtype),
-        "erot": np.stack([jax_rotations(k, nelec, nconf) for k in ekeys]),
-        "erot0": jax_rotations(jax.random.fold_in(key, 999), nelec, nconf),
+        "erot": jax.vmap(rotations)(jax.random.split(ke, NSTEPS)),
+        "erot0": rotations(jax.random.fold_in(key, 999)),
     }
     if tmoves:
         kt1, kt2, kt3 = jax.random.split(kt, 3)
         tqkeys = jax.random.split(kt1, NSTEPS * nelec).reshape((NSTEPS, nelec) + kt1.shape)
-        streams["tqrot"] = np.stack([
-            np.stack([np.asarray(random_rotations(tqkeys[s, e], (nconf,)))
-                      for e in range(nelec)]) for s in range(NSTEPS)])
+        streams["tqrot"] = jax.vmap(jax.vmap(lambda k: random_rotations(k, (nconf,))))(tqkeys)
         streams["u_sel"] = jax.random.uniform(kt2, (NSTEPS, nelec, nconf), dtype)
         streams["u_acc"] = jax.random.uniform(kt3, (NSTEPS, nelec, nconf), dtype)
-    return {k: np.asarray(v) for k, v in streams.items()}
+    return streams
 
 
 @pytest.mark.parametrize("tmoves", [True, False])

@@ -17,8 +17,9 @@ periodic kernels K3, K6 (to 1e-9 of each entry plus the largest entry) and
 K7 in both modes (state, wrap counts; r2p and r2a in the dmc mode) on the
 diamond supercell at 37 and at 6 walkers, counts that leave the last
 block of the sweep's 4 walkers (groups of 4 warps) partly empty; K3 also
-at 1037 points (not a multiple of its 128-point tile) with 8, 32 and 64
-orbital columns on the diamond's and on H2O's basis. The full
+at 1037 points (not a multiple of its 128-point tile) with 8, 16, 32 and
+64 orbital columns on the diamond's and on H2O's basis, and in a float32
+multi-Slater-Jastrow VMC block against plain_orbitals(). The full
 production-size checks, float32 included, are in chip_smoke.py.
 """
 
@@ -343,12 +344,13 @@ def test_gto_kernels_match_plain(cuda_diamond):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("basis", ["diamond", "h2o"])
-@pytest.mark.parametrize("norb", [8, 32, 64])
+@pytest.mark.parametrize("norb", [8, 16, 32, 64])
 def test_value_mo_kernel_tiles(basis, norb):
     """K3 against its plain version at 1037 points (the last 128-point tile
     ragged) and random coefficients of norb columns (one tile of 8, 32 or
-    64 orbital columns), on the diamond's 489 replicated-shell AOs and on
-    H2O's 23."""
+    64 orbital columns; 16, the multi-determinant H2O path's 8 orbitals per
+    spin, half of a 32-column tile), on the diamond's 489 replicated-shell
+    AOs and on H2O's 23."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from pyqmc_tpu_torch.entry import diamond_setup
@@ -372,3 +374,38 @@ def test_value_mo_kernel_tiles(basis, norb):
     out = vm.transposed(X, C)
     assert gto_kernels.VALUE_MO_LAUNCHES.n == n3 + 1 and out.shape == (norb, 1037)
     assert _close_scaled(out, vm.plain_t(X, C), 1e-9)
+
+
+@pytest.mark.cuda
+def test_multidet_vmc_block_k3_matches_plain():
+    """One float32 VMC block of the multi-Slater-Jastrow (h2o_casci_setup,
+    64 walkers, 5 steps) with K3 and inside plain_orbitals() on the same
+    streams: the sweep reads no value-only orbitals, so the positions and
+    the acceptance are identical; the energies, whose ECP ratios run on K3,
+    agree to 1e-5 relative. One K3 launch per step (the ECP energy), none
+    of the other kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pyqmc_tpu_torch.entry import h2o_casci_setup
+    from pyqmc_tpu_torch.method.vmc import make_vmc_block
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+    from pyqmc_tpu_torch.ops import gto_kernels, tmove_sweep
+
+    nconf, nsteps = 64, 5
+    mol, wf, params, configs, acc = h2o_casci_setup(nconf, device="cuda", dtype=torch.float32,
+                                                    seed=3)
+    block = make_vmc_block(wf, acc, configs.geometry, 0.5, nsteps)
+    streams = draw_streams(torch.Generator(device="cuda").manual_seed(5), nsteps, 8, nconf, 0.5,
+                           "cuda", torch.float32)
+    counters = (gto_kernels.VALUE_MO_LAUNCHES, move_sweep.LAUNCHES, move_sweep.DMC_LAUNCHES,
+                ecp_energy.LAUNCHES, tmove_sweep.LAUNCHES)
+    n0 = [c.n for c in counters]
+    pk, _, ak = block(params, configs.positions, configs.wrap, None, streams=streams)
+    assert [c.n - n for c, n in zip(counters, n0)] == [nsteps, 0, 0, 0, 0]
+    with plain_orbitals():
+        pp, _, ap = block(params, configs.positions, configs.wrap, None, streams=streams)
+    assert gto_kernels.VALUE_MO_LAUNCHES.n == n0[0] + nsteps
+    assert torch.equal(pk, pp)
+    assert float(ak["acceptance"]) == float(ap["acceptance"])
+    for k in ("energytotal", "energyecp", "energyke"):
+        assert abs(float(ak[k]) - float(ap[k])) <= 1e-5 * abs(float(ap[k])), k
