@@ -182,12 +182,42 @@ determinants (`h2o_casci_setup`, 2048 walkers), VMC and DMC with T-moves.
      -16.9) Ha and at most 0.05 Ha above the warm-up VMC's; then one
      kernel-path block timed, the T-move and drift-diffusion sweeps alone,
      and a 2-step block under torch.profiler
+  17. wavefunction optimization of the H2O Jastrow: generate_wf on the
+     committed checkpoint (33 free coefficients: 24 acoeff, 9 bcoeff), 4 x
+     10 VMC steps of equilibration (K1 only), then line_minimization with
+     its defaults (10 x 10 SR steps, 6 step lengths by correlated
+     sampling) for 20 iterations; launches exactly 100 K1 and 107 K2 per
+     iteration and nothing else; every record finite, the last iteration's
+     energy at least 0.1 Ha below the first's, the parameters moved; each
+     iteration's energy, |g|, tau, stall flag and wall time (SR VMC blocks,
+     host solve, correlated sampling). Then 6 x 50 VMC steps with the
+     optimized parameters (300 K1, 300 K2): the mean of the blocks after
+     the first below -17.10 Ha and within max(5 x combined SEM, 0.01 Ha) of
+     the JAX package's CPU reference on the same schedule
+     (tools/h2o_opt_jax_reference.py). With the optimized parameters, one
+     10-step block with the kernels and one with fused=False and a plain
+     ECP energy on one set of streams (phase 2's float32 tolerances: at
+     most 1% of the walkers' chains apart, the energies of the others to
+     1e-4 relative), and the last iteration's 7 parameter sets' correlated
+     energies with K2 and plain on one rotation draw (energies to 1e-4
+     relative, ess to 1e-4). One step's SR averages in float32 and float64
+     on the same walkers (S, its conditioning and the SR step: printed).
+     One 10-step SR block timed and traced under torch.profiler as in
+     phase 5, and the SR step's pieces alone (CUDA events)
+  18. DMC with the optimized Jastrow: rundmc() from phase 17's walkers, 2
+     VMC warm-up blocks, 30 x 10 steps at tstep 0.02 with T-moves; launch
+     counts as in phase 6 (per block 10 K4, 10 K5, 11 K2, plus the
+     warm-up's K1 and K2); block weights in (0.5, 2), acceptance above
+     0.9; the energy of blocks 11-30 in (-17.27, -17.22) Ha and at least
+     0.03 Ha below phase 17's VMC energy; its distance to the README's
+     tau = 0.02 value (the JAX package on a TPU) printed
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import json
 import subprocess
 import time
@@ -250,6 +280,22 @@ CASCI_TRACE_NSTEPS = 10  # phase 15's traced block (the profiler's events of a
 # runs (see PERF.md)
 CASCI_SJ_REF = {"e": -17.003278882783047, "sem": 0.0020749883021948198,
                 "acceptance": 0.6176443481445313}
+# the optimization path (phases 17-18): generate_wf on the committed H2O, 2048 walkers
+OPT_NPARAMS = 33  # generate_jastrow's defaults: 24 acoeff + 9 bcoeff (cusp row frozen)
+OPT_EQUIL_BLOCKS = 4  # 10-step VMC blocks before the optimizer, as recipes.OPTIMIZE
+OPT_ITERATIONS = 20  # line_minimization's iterations, as tools/h2o_anchor.py
+OPT_VMC_BLOCKS = 6  # 50-step VMC blocks with the optimized Jastrow, the first dropped
+OPT_CHECK_NSTEPS = 10  # the kernel-against-plain block and the traced SR block
+OPT_DMC_WARMUP = 2
+OPT_DMC_NBLOCKS = 30
+OPT_DMC_NSKIP = 10  # DMC blocks dropped before the energy
+# tools/h2o_opt_jax_reference.py 2048 3 20 11 on the CPU, float64, the same
+# schedule: 3 runs of 2048 walkers, the mean of their optimized VMC
+# energies and its standard error over the runs (see PERF.md)
+H2O_OPT_REF = {"e": -17.184953303274973, "sem": 0.0006963918607397805}
+# README "Correctness anchors": T-move DMC at tau 0.02 with the optimized
+# Jastrow, the JAX package on a TPU (printed beside phase 18, not checked)
+H2O_DMC_README = (-17.2429, 0.0013)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -1387,6 +1433,280 @@ def casci_phases(t_start, card, counters, per_point_64):
     return c64, c32, slaunches, mlaunches, ours_sj
 
 
+class WalkerEnergies:
+    """An energy accumulator that keeps each step's positions and per-walker
+    total energies, and averages as EnergyAccumulator.avg does (so it
+    launches what the energy launches)."""
+
+    def __init__(self, energy):
+        self.energy = energy
+        self.ecp_acc = energy.ecp_acc
+        self.steps = []
+
+    def avg(self, wf, params, state, positions, rot=None, u_sel=None):
+        d = self.energy(wf, params, state, positions, rot, u_sel)
+        self.steps.append((positions.clone(), d["total"].clone()))
+        return {k: torch.mean(v, dim=0) for k, v in d.items()}
+
+
+def sr_precision(wf, params, lt, energy, pos, rot):
+    """One step's SR averages on the same walkers and rotations in float32
+    and float64: the overlap matrices' relative difference, the float64
+    one's condition number (regularized as delta_p does) and the relative
+    difference of the SR steps."""
+    from pyqmc_tpu_torch.observables.sr import StochasticReconfiguration
+
+    sr = StochasticReconfiguration(energy, lt)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        p, x, r = cast_tree(params, dtype), pos.to(dtype), rot.to(dtype)
+        a = {k: v[None].double().cpu().numpy()
+             for k, v in sr.avg(wf, p, wf.recompute(p, x), x, r).items()}
+        dp = a["dp"][0]
+        out[dtype] = (a["dpidpj"][0] - np.outer(dp, dp), sr.delta_p([1.0], a)[0][0])
+    (s32, d32), (s64, d64) = out[torch.float32], out[torch.float64]
+    reg = s64 + sr.eps * np.eye(len(s64))
+    return {"S_rel_diff": float(np.linalg.norm(s32 - s64) / np.linalg.norm(s64)),
+            "cond_S_reg": float(np.linalg.cond(reg)),
+            "step_rel_diff": float(np.linalg.norm(d32 - d64) / np.linalg.norm(d64))}
+
+
+def optimization_phases(t_start, card, counters, vmc_step_s):
+    """Phases 17-18: the H2O Jastrow optimized with SR and correlated-
+    sampling line minimization, its VMC, and DMC with it. `counters`
+    {kernel: launch counter}; vmc_step_s the VMC step of phase 4's kernel
+    block (printed beside the SR step). Returns the launch counts and numbers
+    that the kernels' line carries."""
+    from pyqmc_tpu_torch.configs import initial_guess
+    from pyqmc_tpu_torch.method import linemin
+    from pyqmc_tpu_torch.method.dmc import rundmc
+    from pyqmc_tpu_torch.method.vmc import draw_streams, make_vmc_block, vmc
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+    from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
+    from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
+    from pyqmc_tpu_torch.observables.sr import StochasticReconfiguration
+    from pyqmc_tpu_torch.observables.transform import LinearTransform
+    from pyqmc_tpu_torch.system.io import load_npz
+    from pyqmc_tpu_torch.wftools import generate_wf
+
+    none = {k: 0 for k in counters}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    print(f"phase 17 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    # phase 17: the Jastrow optimized through the entry points, default device
+    mol, mf = load_npz()
+    wf, params0, to_opt = generate_wf(mol, mf, dtype=torch.float32)
+    check(params0["wf1"]["acoeff"].device.type == "cuda", "generate_wf's default device is not the GPU")
+    lt = LinearTransform(params0, to_opt)
+    print(f"phase 17: LinearTransform.nparams {lt.nparams} (acoeff {lt.sizes[3]}, bcoeff "
+          f"{lt.sizes[4]})", flush=True)
+    check(lt.nparams == OPT_NPARAMS, f"{lt.nparams} optimized parameters, not {OPT_NPARAMS}")
+    energy = EnergyAccumulator(mol)
+    configs = initial_guess(mol, NCONF, generator=torch.Generator().manual_seed(43), device="cuda",
+                            dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, configs = vmc(wf, params0, configs, nblocks=OPT_EQUIL_BLOCKS, nsteps_per_block=10,
+                     tstep=TSTEP, generator=gen)
+    torch.cuda.synchronize()
+    t_equil = time.perf_counter() - t0
+    check(read_counts() == {**none, "vmc_sweep": OPT_EQUIL_BLOCKS * 10},
+          f"kernel launches of the equilibration: {read_counts()}")
+    infos = []
+    reset_counts()
+    t0 = time.perf_counter()
+    params, oconfigs, records = linemin.line_minimization(
+        wf, params0, configs, lt, energy, generator=gen, max_iterations=OPT_ITERATIONS,
+        callback=lambda rec, info: infos.append(info))
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    olaunches = read_counts()
+    nit = len(records)
+    nsr, ncand = 10 * 10, 6  # SR steps and line-search candidates per iteration
+    oexpect = {**none, "vmc_sweep": nit * nsr, "ecp_energy": nit * (nsr + 1 + ncand)}
+    for rec, info in zip(records, infos):
+        sec = info["seconds"]
+        print(f"phase 17 iteration {rec['iteration']}: E={rec['energy']:.6f} +- "
+              f"{rec['energy_err']:.6f} |g|={rec['gnorm']:.4f} tau={rec['tau']} "
+              f"stalled={rec['stalled']} line energies "
+              f"{[round(float(e), 5) for e in rec['line_energies']]} ess "
+              f"{[round(float(e), 3) for e in info['ess']]}; wall s: SR VMC {sec['vmc']:.3f}, "
+              f"solve {sec['solve']:.4f}, correlated sampling {sec['correlated']:.3f}", flush=True)
+        check(all(bool(np.all(np.isfinite(rec[k])))
+                  for k in ("energy", "energy_err", "gnorm", "line_energies")),
+              f"non-finite optimization record {rec}")
+    check(olaunches == oexpect, f"kernel launches of the optimization: {olaunches}, expected "
+          f"{oexpect}")
+    drop = records[0]["energy"] - records[-1]["energy"]
+    dx = float(torch.linalg.norm((lt.serialize(params) - lt.serialize(params0)).double()))
+    split = {k: float(np.mean([i["seconds"][k] for i in infos])) for k in infos[0]["seconds"]}
+    print(f"phase 17: launches {olaunches} ({nsr} K1 and {nsr + 1 + ncand} K2 per iteration), "
+          f"{nit} iterations in {t_opt:.2f} s ({t_opt / nit:.3f} s each; mean split, s: "
+          f"{json.dumps(split)}), equilibration {t_equil:.2f} s; E {records[0]['energy']:.6f} -> "
+          f"{records[-1]['energy']:.6f} Ha (drop {drop:.4f}); |x - x0| {dx:.4f}; {card}",
+          flush=True)
+    check(drop >= 0.1, f"the optimization lowered the energy by {drop} Ha, not 0.1")
+    check(dx > 0, "the optimization left the parameters where they were")
+
+    # the optimized VMC
+    reset_counts()
+    t0 = time.perf_counter()
+    vblocks, vconfigs = vmc(wf, params, oconfigs, nblocks=OPT_VMC_BLOCKS, nsteps_per_block=NSTEPS,
+                            tstep=TSTEP, accumulators={"energy": energy}, generator=gen)
+    torch.cuda.synchronize()
+    t_vmc = time.perf_counter() - t0
+    vlaunches = read_counts()
+    for b in vblocks:
+        print(f"phase 17 VMC block {b['block']}: E={b['energytotal']:.6f} "
+              f"ecp={b['energyecp']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in optimized VMC block {b['block']}")
+    check(vlaunches == {**none, "vmc_sweep": OPT_VMC_BLOCKS * NSTEPS,
+                        "ecp_energy": OPT_VMC_BLOCKS * NSTEPS},
+          f"kernel launches of the optimized VMC: {vlaunches}")
+    e_v = np.array([b["energytotal"] for b in vblocks[1:]])
+    m_v, sem_v = float(np.mean(e_v)), float(np.std(e_v, ddof=1) / np.sqrt(len(e_v)))
+    oref = H2O_OPT_REF
+    owindow = max(5 * float(np.hypot(sem_v, oref["sem"])), 0.01)
+    print(f"phase 17: optimized VMC E(blocks 2-{OPT_VMC_BLOCKS})={m_v:.6f} +- {sem_v:.6f} Ha, acc "
+          f"{np.mean([b['acceptance'] for b in vblocks[1:]]):.4f}; unoptimized pin "
+          f"{H2O_VMC_E:.6f}; JAX CPU reference {oref['e']:.6f} +- {oref['sem']:.6f} Ha, "
+          f"{(m_v - oref['e']) / np.hypot(sem_v, oref['sem']):.2f} combined SEM away, window "
+          f"{owindow:.6f} Ha; {t_vmc:.2f} s", flush=True)
+    check(m_v < -17.10, f"optimized VMC energy {m_v} not below -17.10 Ha")
+    check(abs(m_v - oref["e"]) <= owindow,
+          f"optimized VMC energy {m_v} off the JAX reference {oref['e']} by more than {owindow}")
+
+    # the optimized parameters reach the kernels: kernels against plain on one set of streams
+    plain_energy = EnergyAccumulator(mol, ecp_acc=ECPAccumulator(mol, fused=False))
+    cst = draw_streams(gen, OPT_CHECK_NSTEPS, 8, NCONF, TSTEP, "cuda", torch.float32)
+    runs = {}
+    for fused, en in ((True, energy), (False, plain_energy)):
+        probe = WalkerEnergies(en)
+        block = make_vmc_block(wf, {"energy": probe}, vconfigs.geometry, TSTEP, OPT_CHECK_NSTEPS,
+                               fused=fused)
+        reset_counts()
+        out = block(params, vconfigs.positions, vconfigs.wrap, gen, streams=cst)
+        runs[fused] = (out, probe.steps, read_counts())
+    check(runs[True][2] == {**none, "vmc_sweep": OPT_CHECK_NSTEPS, "ecp_energy": OPT_CHECK_NSTEPS},
+          f"the kernel block's launches: {runs[True][2]}")
+    check(runs[False][2] == none, f"the plain block launched {runs[False][2]}")
+    worst = 0.0
+    for (kx, ke), (px, pe) in zip(runs[True][1], runs[False][1]):
+        agree = torch.amax(torch.abs(kx - px).reshape(NCONF, -1), dim=1) <= 1e-4
+        rel = torch.abs(ke - pe)[agree] / torch.abs(pe)[agree]
+        worst = max(worst, float(torch.max(rel)))
+    apart = int(torch.sum(~agree))
+    kacc, pacc = float(runs[True][0][2]["acceptance"]), float(runs[False][0][2]["acceptance"])
+    print(f"phase 17: optimized parameters, {OPT_CHECK_NSTEPS}-step block with kernels against "
+          f"plain: {apart} of {NCONF} walkers' chains apart, acceptance {kacc:.5f} and "
+          f"{pacc:.5f}, energies of the others within {worst:.3e} relative", flush=True)
+    check(apart <= 0.01 * NCONF, f"{apart} walkers' chains apart (more than 1%)")
+    check(worst <= 1e-4, f"kernel and plain energies differ by {worst} relative")
+
+    # the last iteration's parameter sets, correlated energies with K2 and plain
+    last = infos[-1]
+    crot, _ = linemin.draw_ecp_streams(gen, 8, last["positions"].shape[0], "cuda", torch.float32)
+    reset_counts()
+    ce = {}
+    for name, en, scope in (("kernel", energy, contextlib.nullcontext),
+                            ("plain", plain_energy, plain_orbitals)):
+        with scope():  # plain: the ECP chain's ratios without K3
+            ce[name] = linemin.correlated_energies(linemin.make_correlated_sampler(wf, en),
+                                                   last["params0"], last["candidates"],
+                                                   last["positions"], crot)
+    check(read_counts() == {**none, "ecp_energy": 1 + ncand},
+          f"the correlated samplers' launches: {read_counts()}")
+    ce_rel = float(np.max(np.abs(ce["kernel"][0] - ce["plain"][0]) / np.abs(ce["plain"][0])))
+    ess_diff = float(np.max(np.abs(ce["kernel"][1] - ce["plain"][1])))
+    print(f"phase 17: the last iteration's {1 + ncand} parameter sets, correlated energies with "
+          f"K2 {[round(float(e), 6) for e in ce['kernel'][0]]} against plain, {ce_rel:.3e} "
+          f"relative apart, ess {ess_diff:.3e} apart", flush=True)
+    check(ce_rel <= 1e-4, f"K2 and plain correlated energies {ce_rel} relative apart")
+    check(ess_diff <= 1e-4, f"K2 and plain effective sample sizes {ess_diff} apart")
+
+    # float32 against float64 SR averages on the same walkers and rotations
+    prec = sr_precision(wf, params, lt, energy, vconfigs.positions, crot)
+    print(f"phase 17: one step's SR averages, float32 against float64 on the same walkers: "
+          f"{json.dumps(prec)}", flush=True)
+
+    # one SR block timed, then traced; the SR step's pieces alone
+    sr = StochasticReconfiguration(energy, lt)
+    sblock = make_vmc_block(wf, {"pgrad": sr}, vconfigs.geometry, TSTEP, OPT_CHECK_NSTEPS)
+    spos, swrap = vconfigs.positions, vconfigs.wrap
+    sblock(params, spos, swrap, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sblock(params, spos, swrap, gen)
+    torch.cuda.synchronize()
+    t_sr = time.perf_counter() - t0
+    ours_sr = report_trace("phase 17", f"{OPT_CHECK_NSTEPS}-step SR VMC block", OPT_CHECK_NSTEPS,
+                           traced(lambda: sblock(params, spos, swrap, gen)), t_sr)
+    sstate = wf.recompute(params, spos)
+    srot = crot
+    pieces = {"pgradient_ms": cuda_ms(lambda: wf.pgradient(params, spos), 3),
+              "energy_ms": cuda_ms(lambda: energy(wf, params, sstate, spos, srot), 3),
+              "sr_avg_ms": cuda_ms(lambda: sr.avg(wf, params, sstate, spos, srot), 3),
+              "recompute_ms": cuda_ms(lambda: wf.recompute(params, spos), 3)}
+    print(f"phase 17: SR VMC step {t_sr / OPT_CHECK_NSTEPS * 1e3:.2f} ms ({OPT_CHECK_NSTEPS}-step "
+          f"block {t_sr:.4f} s) against the VMC step's {vmc_step_s * 1e3:.2f} ms (phase 4); "
+          f"pieces alone (CUDA events), ms: {json.dumps(pieces)}; {card}", flush=True)
+    t17 = time.perf_counter() - t_phase
+
+    print(f"phase 18 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 18: DMC with the optimized Jastrow, from phase 17's walkers
+    reset_counts()
+    t0 = time.perf_counter()
+    dblocks, dconfigs, dweights = rundmc(
+        wf, params, vconfigs, nblocks=OPT_DMC_NBLOCKS, nsteps_per_block=DMC_NSTEPS,
+        tstep=DMC_TSTEP, energy_acc=energy, generator=gen, warmup_vmc_blocks=OPT_DMC_WARMUP)
+    torch.cuda.synchronize()
+    t18 = time.perf_counter() - t0
+    dlaunches = read_counts()
+    for b in dblocks:
+        print(f"phase 18 block {b['block']}: E={b['energytotal']:.6f} w={b['weight']:.5f} "
+              f"e_trial={b['e_trial']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    nwarm = OPT_DMC_WARMUP * 10  # rundmc's warm-up blocks have 10 steps
+    dexpect = {**none, "vmc_sweep": nwarm, "dmc_sweep": OPT_DMC_NBLOCKS * DMC_NSTEPS,
+               "tmove_sweep": OPT_DMC_NBLOCKS * DMC_NSTEPS,
+               "ecp_energy": nwarm + 1 + OPT_DMC_NBLOCKS * (DMC_NSTEPS + 1)}
+    check(dlaunches == dexpect, f"kernel launches of the optimized DMC: {dlaunches}, expected "
+          f"{dexpect}")
+    for b in dblocks:
+        check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
+        check(0.5 < b["weight"] < 2.0, f"block mean weight {b['weight']} outside (0.5, 2)")
+        check(b["acceptance"] > 0.9, f"DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(dweights))) and bool(torch.all(dweights > 0)),
+          "final optimized DMC weights are not finite and positive")
+    e_d = np.array([b["energytotal"] for b in dblocks[OPT_DMC_NSKIP:]])
+    m_d = float(np.mean(e_d))
+    from pyqmc_tpu_torch.reblock import reblock_summary
+
+    sem_d = float(reblock_summary(e_d, nblocks=min(8, len(e_d)))["standard error"])
+    readme, readme_sem = H2O_DMC_README
+    print(f"phase 18: launches {dlaunches}, E(blocks {OPT_DMC_NSKIP + 1}-{OPT_DMC_NBLOCKS})="
+          f"{m_d:.6f} +- {sem_d:.6f} Ha, {m_v - m_d:.4f} Ha below the optimized VMC; README "
+          f"tau=0.02 value {readme:.4f}({readme_sem * 1e4:.0f}) (the JAX package on a TPU), "
+          f"{m_d - readme:+.4f} Ha, {(m_d - readme) / np.hypot(sem_d, readme_sem):+.2f} combined "
+          f"SEM; {t18:.2f} s for {OPT_DMC_WARMUP} warm-up + {OPT_DMC_NBLOCKS} blocks "
+          f"({NCONF * DMC_NSTEPS * OPT_DMC_NBLOCKS / t18:.1f} walker-steps/s); phases 17-18 "
+          f"{t17 + t18:.1f} s", flush=True)
+    check(-17.27 < m_d < -17.22, f"optimized DMC energy {m_d} outside (-17.27, -17.22) Ha")
+    check(m_d <= m_v - 0.03, f"optimized DMC energy {m_d} not 0.03 Ha below the VMC's {m_v}")
+    return {"opt": olaunches, "opt_vmc": vlaunches, "opt_dmc": dlaunches, "iterations": nit,
+            "sr": ours_sr}
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0: the card (and the package: nothing is printed without both)
@@ -1795,6 +2115,7 @@ def main():
     per_point_64 = (p32["redesigned"]["value_mo"]["device_ms"] * 1e6
                     / p32["redesigned"]["value_mo"]["points"])
     c64, c32, slaunches, mlaunches, ours_sj = casci_phases(t_start, card, counters, per_point_64)
+    opt = optimization_phases(t_start, card, counters, tk / NSTEPS)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -1835,6 +2156,12 @@ def main():
             entry.update({"device_event_ms": red["device_ms"],
                           "wrapper_event_ms": red["wrapper_ms"],
                           "bound_share": red["bound_share"]})
+        # the optimization path (phases 17-18)
+        entry.update({"launches_opt_per_iteration": opt["opt"][name] // opt["iterations"],
+                      "launches_opt_vmc": opt["opt_vmc"][name],
+                      "launches_opt_dmc": opt["opt_dmc"][name]})
+        if on_vmc:
+            entry["device_ms_sr_block"] = device_ms(opt["sr"], *trace_names)
         kernels.append(entry)
     for name in periodic:
         main_path = qlaunches if name == "pbc_dmc_sweep" else plaunches

@@ -64,9 +64,11 @@ def downselects(accumulators):
 def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutoff=1.0,
                    fused=True):
     """Returns block(params, positions, wrap, generator, streams=None)
-    -> (positions, wrap, averages), averages being 0-d tensors on the
-    walkers' device: "acceptance" (per electron move) and
-    f"{name}{key}" for every accumulator output.
+    -> (positions, wrap, averages), averages being tensors on the walkers'
+    device, each the mean over the block's steps of one accumulator output
+    (0-d for a walker mean, (nparam,) or (nparam, nparam) for the SR
+    accumulator's): "acceptance" (per electron move) and f"{name}{key}"
+    for every accumulator output.
 
     fused=True takes the CUDA sweep kernel when the wavefunction passes its
     gate (its wrapper runs the plain sweep for CPU tensors): K1 for an open
@@ -105,7 +107,7 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
                                   u_sel).items():
                     out[name + k] = v
             records.append(out)
-        avg = {k: torch.mean(torch.stack([r[k] for r in records])) for k in records[0]}
+        avg = {k: torch.mean(torch.stack([r[k] for r in records]), dim=0) for k in records[0]}
         return positions, wrap, avg
 
     return block
@@ -114,10 +116,13 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
 def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int = 10,
         tstep: float = 0.5, accumulators: Optional[dict] = None,
         generator: Optional[torch.Generator] = None, block_fn=None, verbose: bool = False):
-    """Run VMC; returns (list of per-block dicts of floats, final Configs).
+    """Run VMC; returns (list of per-block dicts, final Configs): a 0-d
+    average becomes a float, an array-valued one (the SR accumulator's dp,
+    dpidpj, ...) a numpy array, as the JAX package's vmc returns them.
 
-    Blocks are pipelined: block b's averages are fetched (one stacked copy
-    to the host) after block b+1 has been queued, so the host round trip
+    Blocks are pipelined: block b's averages are fetched (one copy to the
+    host of all of them, flattened and concatenated) after block b+1 has
+    been queued, so the host round trip
     hides behind device work. "block time" is the host time from the
     block's start until `block_fn` returned, taken before the next block
     starts; the device may still be finishing the block's last kernels.
@@ -136,8 +141,13 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
     def flush(entry):
         b, avg_dev, seconds = entry
         keys = sorted(avg_dev)
-        values = torch.stack([avg_dev[k] for k in keys]).cpu().tolist()
-        avg = dict(zip(keys, values))
+        flat = torch.cat([avg_dev[k].reshape(-1) for k in keys]).cpu().numpy()
+        avg, off = {}, 0
+        for k in keys:
+            shape = tuple(avg_dev[k].shape)
+            n = int(np.prod(shape))
+            avg[k] = float(flat[off]) if not shape else flat[off:off + n].reshape(shape).copy()
+            off += n
         avg["block"] = b
         avg["block time"] = seconds
         block_data.append(avg)

@@ -158,9 +158,16 @@ class KPointOrbitals:
         self.norb = tuple(sum(b.shape[1] for b in self._mo[s]) for s in range(2))
         self.nk = len(self.kpts)
         self._build_replicated(cell, img_tol)
+        # kphase (nao_repl, nk * nao): row r holds its image's phases at the
+        # columns (k, its primitive AO), so AO_repl @ kphase are the k-AOs
+        nao = self.spec.nao
+        kphase = np.zeros((len(self._repl_ao_idx), self.nk * nao))
+        for k in range(self.nk):
+            kphase[np.arange(len(self._repl_ao_idx)), k * nao + self._repl_ao_idx] = \
+                self._repl_phase[:, k]
         self._const = DeviceConstants(lat=self.lattice, lat_inv=self.lattice_inv,
                                       kpts_t=self.kpts.T, phase=self._repl_phase,
-                                      ao_idx=self._repl_ao_idx, korb=self._korb)
+                                      ao_idx=self._repl_ao_idx, korb=self._korb, kphase=kphase)
         self._value_mo = ValueMO(self._repl_spec)
         self._eval2 = EvalGTO2(self._repl_spec) if self._repl_spec.nao >= MIN_NAO_FUSED2 else None
 
@@ -269,6 +276,15 @@ class KPointOrbitals:
             ao, aog, aol = eval_gto(self._repl_spec, Xf, 2)
         return (split((ao @ R) * wcol) + split((aog @ R) * wcol[..., None, :])
                 + split((aol @ R) * wcol))
+
+    def kaos(self, X):
+        """Bloch sums of the primitive cell's AOs at X (..., 3), with the
+        fold's wrap signs: (..., nk, nao); the MOs of k-point k are
+        kaos[..., k, :] @ C_k. Plain PyTorch (K3 contracts with the
+        coefficients, and these feed the coefficients' gradients)."""
+        Xf, wphase = self._fold(X)
+        ao = eval_gto(self._repl_spec, Xf, 0) @ self._const.get(X.device, X.dtype)["kphase"]
+        return ao.reshape(X.shape[:-1] + (self.nk, -1)) * wphase[..., :, None]
 
     def eval_mo_t(self, params, X):
         """Value-only MOs (norb_up + norb_dn, M) at X (M, 3), points minor."""

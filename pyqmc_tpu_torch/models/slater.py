@@ -456,29 +456,39 @@ class Slater:
         """d log psi / d params per walker, {"det_coeff": (nconf, ndet),
         "mo_coeff_alpha": (nconf, nao, norb_up), "mo_coeff_beta": ...}:
         the coefficients' derivatives from the expansion weights, the
-        orbital coefficients' from tr(M^-1 dM) (models/slater.py:546-601)."""
-        if not isinstance(self.orbitals, MolecularOrbitals):
-            raise NotImplementedError(
-                "pgradient of a k-point Slater (pyqmc_tpu/models/slater.py:_pgradient_kpoint) "
-                "is not ported")
+        orbital coefficients' from tr(M^-1 dM) (models/slater.py:546-601).
+        For k-point orbitals (real mode) each spin's entry is a list over k
+        of (nconf, nao, nocc_k), from the Bloch-summed AOs of each k
+        (models/slater.py:_pgradient_kpoint, :501)."""
+        kpoint = not isinstance(self.orbitals, MolecularOrbitals)
         state = self.recompute(params, positions)
         w, denom, _ = self._weights(params, state)
         out = {"det_coeff": (w / params["det_coeff"][None, :]) / denom[:, None]}
-        ao = eval_gto(self.orbitals.spec, positions, 0)  # (nconf, nelec, nao)
+        if kpoint:
+            aos = self.orbitals.kaos(positions)  # (nconf, nelec, nk, nao)
+        else:
+            aos = eval_gto(self.orbitals.spec, positions, 0)[:, :, None, :]
         nconf = positions.shape[0]
         for s, (inv, sl, cname) in enumerate(((state.inv_up, slice(0, self.nup), "mo_coeff_alpha"),
                                               (state.inv_dn, slice(self.nup, None),
                                                "mo_coeff_beta"))):
-            coeff = params[cname]
+            blocks = params[cname] if kpoint else [params[cname]]
             nd, n = inv.shape[1:3]
             if n == 0:
-                out[cname] = torch.zeros((nconf,) + tuple(coeff.shape), dtype=coeff.dtype,
-                                         device=coeff.device)
+                grads = [torch.zeros((nconf,) + tuple(b.shape), dtype=b.dtype, device=b.device)
+                         for b in blocks]
+                out[cname] = grads if kpoint else grads[0]
                 continue
             W = self._unique_weights(params, state, s)  # (nconf, nd)
-            # t[c, k, j, m] = sum_i inv[c, k, j, i] ao[c, i, m], weighted by W_k,
-            # each column (k, j) scattered onto its orbital occ[k, j]
-            t = torch.einsum("ckji,cim->ckjm", inv, ao[:, sl]) * W[:, :, None, None]
-            scat = self._c(ao)["scat_up" if s == 0 else "scat_dn"]  # (norb, nd * n)
-            out[cname] = t.reshape(nconf, nd * n, -1).transpose(1, 2) @ scat.T
+            scat = self._c(inv)["scat_up" if s == 0 else "scat_dn"]  # (norb, nd * n)
+            grads, off = [], 0
+            for k, b in enumerate(blocks):
+                # t[c, k, j, m] = sum_i inv[c, k, j, i] ao[c, i, m], weighted by
+                # W_k, each column (k, j) scattered onto its orbital occ[k, j]
+                # (the orbitals off .. off + nocc of this k-point's block)
+                t = torch.einsum("ckji,cim->ckjm", inv, aos[:, sl, k]) * W[:, :, None, None]
+                grads.append(t.reshape(nconf, nd * n, -1).transpose(1, 2)
+                             @ scat[off:off + b.shape[1]].T)
+                off += b.shape[1]
+            out[cname] = grads if kpoint else grads[0]
         return out

@@ -19,12 +19,16 @@ from .ewald import Ewald
 class EnergyAccumulator:
     """{ke, ee, ei, ii, ecp, grad2, total} local-energy accumulator."""
 
-    def __init__(self, mol, ecp_acc=None):
+    def __init__(self, mol, ecp_acc=None, ewald=None):
         """ecp_acc: an ECPAccumulator, None to build one when mol carries an
-        ECP, or False to leave the ECP term out."""
+        ECP, or False to leave the ECP term out. ewald: the Ewald sums of a
+        periodic cell, None to build them with their defaults."""
         self.mol = mol
         self.periodic = getattr(mol, "lattice", None) is not None
-        self.coulomb = Ewald(mol) if self.periodic else OpenCoulomb(mol)
+        if self.periodic:
+            self.coulomb = ewald if ewald is not None else Ewald(mol)
+        else:
+            self.coulomb = OpenCoulomb(mol)
         if ecp_acc is None and mol.ecp:
             ecp_acc = ECPAccumulator(mol)
         self.ecp_acc = ecp_acc or None
@@ -45,3 +49,22 @@ class EnergyAccumulator:
     def avg(self, wf, params, state, positions, rot=None, u_sel=None):
         return {k: torch.mean(v, dim=0)
                 for k, v in self(wf, params, state, positions, rot, u_sel).items()}
+
+
+def gradient_generator(mol, wf, params, to_opt=None, naip=None, eps=1e-3, nodal_cutoff=1e-3,
+                       **ewald_kws):
+    """The SR accumulator of a wavefunction optimization: an
+    EnergyAccumulator (the ECP with `naip` where mol carries one; for a
+    periodic cell, Ewald sums built with ewald_kws when any are given) and
+    a LinearTransform of the optimized subset `to_opt` of params, wired
+    into a StochasticReconfiguration."""
+    from .sr import StochasticReconfiguration
+    from .transform import LinearTransform
+
+    ecp_acc = ECPAccumulator(mol, naip=naip) if mol.ecp else None
+    ewald = None
+    if getattr(mol, "lattice", None) is not None and ewald_kws:
+        ewald = Ewald(mol, **ewald_kws)
+    energy = EnergyAccumulator(mol, ecp_acc=ecp_acc, ewald=ewald)
+    return StochasticReconfiguration(energy, LinearTransform(params, to_opt), eps=eps,
+                                     nodal_cutoff=nodal_cutoff)

@@ -1,0 +1,88 @@
+"""Stochastic reconfiguration accumulator and update rule (counterpart of
+pyqmc_tpu/observables/sr.py).
+
+Each step's walker averages of (E, dp, E dp, dp_i dp_j) are accumulated in
+the VMC block on the device; the (nparam, nparam) solve runs on the host in
+float64 numpy.
+
+Nodal regularization (Pathak & Wagner 2020): the parameter gradients are
+damped by f(r) = 9(r/c)^2 - 15(r/c)^4 + 7(r/c)^6, r = |grad lnPsi|^-1,
+within r < nodal_cutoff of a node. dp and dpH take the regularized
+gradients; dpidpj pairs one raw factor with one regularized.
+
+The imaginary channel of the JAX package (total_im, dpI, dpHI, dpidpjI)
+needs a complex local energy, which the port does not have: gradients with
+an imaginary part raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transform import LinearTransform
+
+
+def nodal_regularization(grad2, nodal_cutoff=1e-3):
+    """Damping factor per walker: 1 away from nodes, -> 0 at a node.
+    grad2 = sum_e |grad_e lnPsi|^2, so r = 1/grad2 ~ (distance to node)^2."""
+    r = 1.0 / torch.clamp(grad2, min=1e-30)
+    c2 = nodal_cutoff**2
+    x = r / c2
+    f = 9.0 * x - 15.0 * x**2 + 7.0 * x**3
+    return torch.where(r < c2, f, torch.ones_like(f))
+
+
+class StochasticReconfiguration:
+    """sr(wf, params, state, positions, rot, u_sel=None) -> per-walker
+    {total, grad2, dpR}; sr.avg(...) -> walker means {total, dp, dpH,
+    dpidpj}."""
+
+    def __init__(self, energy_acc, transform: LinearTransform, eps: float = 1e-3,
+                 nodal_cutoff: float = 1e-3):
+        self.energy_acc = energy_acc
+        self.transform = transform
+        self.eps = eps
+        self.nodal_cutoff = nodal_cutoff
+
+    @property
+    def ecp_acc(self):
+        """The energy's ECP, so the VMC block draws what it reads."""
+        return getattr(self.energy_acc, "ecp_acc", None)
+
+    def __call__(self, wf, params, state, positions, rot=None, u_sel=None):
+        d = self.energy_acc(wf, params, state, positions, rot, u_sel)
+        R, I = self.transform.serialize_gradients_pair(wf.pgradient(params, positions))
+        if I is not None:
+            raise NotImplementedError(
+                "SR with complex parameter gradients needs the complex local energy of "
+                "complex KPointOrbitals (ROADMAP queue 1 item 7), which is not ported")
+        return {"total": d["total"], "grad2": d["grad2"], "dpR": R}
+
+    def avg(self, wf, params, state, positions, rot=None, u_sel=None):
+        dat = self(wf, params, state, positions, rot, u_sel)
+        eR, R = dat["total"], dat["dpR"]
+        nconf = R.shape[0]
+        f = nodal_regularization(dat["grad2"], self.nodal_cutoff)
+        Rreg = R * f[:, None]
+        return {
+            "total": torch.mean(eR),
+            "dp": torch.mean(Rreg, dim=0),
+            "dpH": (eR @ Rreg) / nconf,
+            "dpidpj": (R.T @ Rreg) / nconf,
+        }
+
+    def keys(self):
+        return {"total", "dp", "dpH", "dpidpj"}
+
+    def delta_p(self, taus, block_avg):
+        """Parameter steps -tau S_reg^-1 g for each tau, and |g|, from the
+        blocks' averages (each a stack over blocks), in float64 numpy."""
+        en = np.mean(np.asarray(block_avg["total"], dtype=np.float64))
+        dp = np.mean(np.asarray(block_avg["dp"], dtype=np.float64), axis=0)
+        dpH = np.mean(np.asarray(block_avg["dpH"], dtype=np.float64), axis=0)
+        dpidpj = np.mean(np.asarray(block_avg["dpidpj"], dtype=np.float64), axis=0)
+        g = 2.0 * (dpH - en * dp)
+        S = dpidpj - np.outer(dp, dp)
+        step = np.linalg.solve(S + self.eps * np.eye(len(dp)), g)
+        return [-tau * step for tau in taus], float(np.linalg.norm(g))

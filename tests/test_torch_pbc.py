@@ -270,3 +270,52 @@ def test_value_mo_chunk_table():
             assert 0 < len(rows) <= CHUNK_AOS and rows[0] == row0
             covered += rows
         assert covered == list(range(spec.nao))
+
+
+@functools.lru_cache(maxsize=None)
+def _kpoint_slaters():
+    """The diamond configuration's Slater on both sides: the 2x2x2
+    supercell, 8 TRIM k-points x 4 orbitals per spin, single(32, 32):
+    (jax supercell, jax Slater, jax params, port supercell, port Slater,
+    port params)."""
+    from pyqmc_tpu.models.slater import DeterminantExpansion as JExpansion
+    from pyqmc_tpu.models.slater import Slater as JSlater
+
+    from pyqmc_tpu_torch.convert import params_from_numpy
+    from pyqmc_tpu_torch.models.slater import DeterminantExpansion, Slater
+
+    jcell, _, tcell = diamond_cells()
+    S = 2 * np.eye(3, dtype=int)
+    jsup, tsup = j_get_supercell(jcell, S), get_supercell(tcell, S)
+    jorb, torb = kpoint_orbitals(8)
+    jsl = JSlater(jsup, jorb, JExpansion.single(32, 32))
+    tsl = Slater(tsup, orbitals=torb, expansion=DeterminantExpansion.single(32, 32))
+    jp = jsl.make_params()
+    return jsup, jsl, jp, tsup, tsl, params_from_numpy(jax.device_get(jp), device="cpu",
+                                                        dtype=F64)
+
+
+def test_kpoint_pgradient_matches_jax():
+    """pgradient of the k-point Slater (real mode) at 2 walkers of the
+    supercell against the JAX package's _pgradient_kpoint: det_coeff and
+    every k-point's block of both spins to 1e-10."""
+    jsup, jsl, jp, _, tsl, tp = _kpoint_slaters()
+    x = cell_walkers(np.random.default_rng(3), jsup.lattice, 2, nelec=64, lo=-0.1, hi=1.1)
+    g_j = jax.jit(jsl.pgradient)(jp, jnp.asarray(x))
+    g_t = tsl.pgradient(tp, t64(x))
+    assert [len(g_t[k]) for k in ("mo_coeff_alpha", "mo_coeff_beta")] == [8, 8]
+    assert g_t["mo_coeff_alpha"][5].shape == (2,) + tuple(tp["mo_coeff_alpha"][5].shape)
+    assert_trees_close(g_t, g_j, atol=1e-10)
+    assert all(float(torch.max(torch.abs(b))) > 1e-3 for b in g_t["mo_coeff_beta"])
+
+
+def test_kpoint_slater_run_all():
+    """testwf.run_all on the k-point Slater, its pgradient against finite
+    differences included."""
+    from pyqmc_tpu_torch.configs import initial_guess
+    from pyqmc_tpu_torch.models import testwf
+
+    _, _, _, tsup, tsl, tp = _kpoint_slaters()
+    configs = initial_guess(tsup, 2, generator=torch.Generator().manual_seed(4), device="cpu",
+                            dtype=F64)
+    testwf.run_all(tsl, tp, configs, torch.Generator().manual_seed(5))
