@@ -11,7 +11,11 @@ the 2x2x2 diamond-C supercell (`diamond_setup`, 500 walkers, 64
 electrons, k-point Slater-Jastrow, Ewald, downselected ECP) periodic VMC
 and periodic fixed-node DMC with T-moves, both in 10-step blocks; and on
 the same H2O with the full-valence CASCI(8e,8o) expansion, 1,098
-determinants (`h2o_casci_setup`, 2048 walkers), VMC and DMC with T-moves.
+determinants (`h2o_casci_setup`, 2048 walkers), VMC and DMC with T-moves;
+the wavefunction optimization of the two-body Jastrow and then of the two-
+and three-body Jastrow; and BASELINE config 3, the CASCI expansion times the
+two- and three-body Jastrow (`h2o_casci_j3_setup`, 2048 walkers), VMC and
+DMC with T-moves.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -212,6 +216,43 @@ determinants (`h2o_casci_setup`, 2048 walkers), VMC and DMC with T-moves.
      0.03 Ha below phase 17's VMC energy; its distance to the README's
      tau = 0.02 value (the JAX package on a TPU) printed
 
+  19. the new wavefunctions' contracts on the card, float64, 64 walkers:
+     testwf.run_all on ThreeBodyJastrow, GeminalJastrow, GPSJastrow (seeded
+     nonzero coefficients) and MultiplyWF(Slater, JastrowSpin,
+     ThreeBodyJastrow) (generate_wf(jastrow3=True)); the JAX package's AddWF
+     checks (tests/unit/test_more_wfs.py:39-49) on AddWF(ground
+     determinant, single excitation); a ThreeBodyJastrow with the
+     cutoffcusp function in its b basis in float32, whose f'/r is 1e12 at
+     the self pair's r = 0: its U, gradients and laplacians at the walkers'
+     own positions and its ECP-style ratios finite and within
+     CUSP32_RTOL of the same in float64
+  20. the three-body Jastrow optimized at 2048 walkers, float32:
+     generate_wf(mol, mf, jastrow3=True) (276 free coefficients) from phase
+     17's optimized two-body coefficients with ccoeff at zero and phase 17's
+     walkers; line_minimization for 6 iterations of 5 x 10 SR steps (a third
+     factor is outside the K1/K2 gates: plain sweep and ECP chain, K3 once
+     per energy, exactly 57 per iteration); each iteration's energy, |g|,
+     SR step and launches; then 4 x 50 VMC steps (200 K3): every energy
+     finite, the mean of the blocks after the first no higher than phase
+     17's by 3 combined SEM and within J3_OPT_BOUND of the JAX CPU
+     reference on the same schedule (tools/h2o_j3_jax_reference.py opt)
+  21. BASELINE config 3 VMC: h2o_casci_j3_setup (the CASCI expansion x the
+     two- and three-body Jastrow on the committed coefficients) + vmc(), 6
+     x 50 steps, exactly 50 K3 per block and nothing else; the mean of the
+     blocks after the first within 3 combined SEM of the JAX CPU reference
+     at the same coefficients (tools/h2o_j3_jax_reference.py vmc); a
+     512-walker 3-step float32 block with K3 and one inside
+     plain_orbitals() on one set of streams (positions and acceptance
+     identical, energies to 1e-5 relative: K3's gate is float32, so a
+     float64 block launches none); a 10-step block under torch.profiler;
+     the pieces of a step alone and the three-body Jastrow's share of the
+     sweep, kinetic energy, ECP ratios and recompute
+  22. config 3 DMC: rundmc() from phase 21's walkers, 2 VMC warm-up blocks
+     and 5 x 10 steps at tstep 0.02 with T-moves; K3 exactly once per
+     energy and once per electron per T-move sweep (91 per block), none of
+     the others; phase 16's windows; the T-move and drift-diffusion sweeps
+     alone
+
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -296,6 +337,26 @@ H2O_OPT_REF = {"e": -17.184953303274973, "sem": 0.0006963918607397805}
 # README "Correctness anchors": T-move DMC at tau 0.02 with the optimized
 # Jastrow, the JAX package on a TPU (printed beside phase 18, not checked)
 H2O_DMC_README = (-17.2429, 0.0013)
+# the wavefunctions of phases 19-22 and BASELINE config 3 (h2o_casci_j3_setup)
+WF_CHECK_NCONF = 64  # phase 19: run_all on the card, float64
+CUSP32_RTOL = 1e-4  # phase 19: float32 against float64, relative to the largest |value|
+J3_NPARAMS = 276  # phase 20: 33 two-body + 243 three-body (ccoeff) coefficients
+J3_ITERATIONS = 6  # phase 20: line_minimization iterations of J3_SR_BLOCKS x 10 SR steps
+J3_SR_BLOCKS = 5
+J3_VMC_BLOCKS = 4  # 50-step VMC blocks with the optimized J2 x J3, the first dropped
+J3_OPT_BOUND = 0.01  # Ha: phase 20's VMC against J3_OPT_REF (PERF.md, set before the first run)
+# tools/h2o_j3_jax_reference.py opt 2048 2 61 on the CPU, float64, phases 17 and
+# 20's schedules: 2 runs of 2048 walkers, the mean of their optimized VMC
+# energies and its standard error over the runs (see PERF.md)
+J3_OPT_REF = {"e": -17.19870129539305, "sem": 0.0007760304331529966}
+CONFIG3_NBLOCKS = 6  # phase 21: 50-step VMC blocks, the first dropped
+CONFIG3_CHECK_NCONF, CONFIG3_CHECK_NSTEPS = 512, 3  # phase 21's K3 against plain block
+CONFIG3_TRACE_NSTEPS = 10
+CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 5, 3  # phase 22, as phase 16
+# tools/h2o_j3_jax_reference.py vmc 256 8 71 on the CPU, float64, phase 21's
+# schedule at the committed coefficients: 8 runs of 256 walkers (see PERF.md)
+CONFIG3_REF = {"e": -17.193638541019272, "sem": 0.0011872010833002958,
+               "acceptance": 0.592219482421875}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -1704,7 +1765,365 @@ def optimization_phases(t_start, card, counters, vmc_step_s):
     check(-17.27 < m_d < -17.22, f"optimized DMC energy {m_d} outside (-17.27, -17.22) Ha")
     check(m_d <= m_v - 0.03, f"optimized DMC energy {m_d} not 0.03 Ha below the VMC's {m_v}")
     return {"opt": olaunches, "opt_vmc": vlaunches, "opt_dmc": dlaunches, "iterations": nit,
-            "sr": ours_sr}
+            "sr": ours_sr, "params": params, "configs": vconfigs, "e_vmc": m_v, "sem_vmc": sem_v}
+
+
+def wavefunction_contracts(card):
+    """Phase 19: testwf.run_all on the new wavefunctions on the card, float64,
+    WF_CHECK_NCONF walkers, seeded nonzero coefficients; the JAX package's
+    AddWF subset on AddWF(ground determinant, single excitation); a cusp b
+    basis in float32 against float64."""
+    from pyqmc_tpu_torch.configs import initial_guess
+    from pyqmc_tpu_torch.models import testwf
+    from pyqmc_tpu_torch.models.addwf import AddWF
+    from pyqmc_tpu_torch.models.func3d import default_ee_basis
+    from pyqmc_tpu_torch.models.generic_jastrow import GeminalJastrow, GPSJastrow
+    from pyqmc_tpu_torch.models.jastrow3 import ThreeBodyJastrow
+    from pyqmc_tpu_torch.models.slater import DeterminantExpansion, Slater
+    from pyqmc_tpu_torch.system.io import load_npz
+    from pyqmc_tpu_torch.wftools import generate_jastrow3, generate_wf
+
+    mol, mf = load_npz()
+    f64 = {"device": "cuda", "dtype": torch.float64}
+    rng = np.random.default_rng(53)
+
+    def normal(scale, like):
+        return torch.as_tensor(rng.normal(scale=scale, size=tuple(like.shape)), **f64)
+
+    j3 = generate_jastrow3(mol)[0]
+    p_j3 = {"ccoeff": normal(0.05, j3.make_params(**f64)["ccoeff"])}
+    gem = GeminalJastrow(mol)
+    p_gem = {"gcoeff": normal(0.02, gem.make_params(**f64)["gcoeff"])}
+    gps = GPSJastrow(mol)
+    p_gps = gps.make_params(**f64)
+    p_gps["alpha"] = normal(0.1, p_gps["alpha"])
+    prod, p_prod, _ = generate_wf(mol, mf, jastrow3=True, **f64)
+    p_prod["wf1"]["acoeff"] = normal(0.1, p_prod["wf1"]["acoeff"])
+    p_prod["wf2"]["ccoeff"] = normal(0.05, p_prod["wf2"]["ccoeff"])
+    configs = initial_guess(mol, WF_CHECK_NCONF, generator=torch.Generator().manual_seed(59),
+                            **f64)
+    seconds = {}
+    for name, wf, params in (("ThreeBodyJastrow", j3, p_j3), ("GeminalJastrow", gem, p_gem),
+                             ("GPSJastrow", gps, p_gps),
+                             ("MultiplyWF(Slater, JastrowSpin, ThreeBodyJastrow)", prod, p_prod)):
+        t0 = time.perf_counter()
+        testwf.run_all(wf, params, configs, torch.Generator().manual_seed(61))
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    # the JAX package's AddWF subset (tests/unit/test_more_wfs.py:39-49)
+    ca = mf.mo_coeff[0]
+    zero = np.zeros(1, dtype=np.int64)
+    excited = Slater(mol, None, DeterminantExpansion(occ_up=np.array([[0, 1, 2, 4]]),
+                                                     occ_dn=np.array([[0, 1, 2, 3]]),
+                                                     map_up=zero, map_dn=zero),
+                     (ca[:, :5], ca[:, :4]))
+    add = AddWF(Slater.from_mean_field(mf), excited)
+    p_add = add.make_params(**f64)
+    p_add["coeff"] = torch.tensor([0.9, 0.35], **f64)
+    t0 = time.perf_counter()
+    for i, fn in enumerate((testwf.test_updateinternals, testwf.test_testvalue,
+                            testwf.test_testvalue_many, testwf.test_gradient,
+                            testwf.test_gradient_laplacian)):
+        fn(add, p_add, configs, torch.Generator().manual_seed(67 + i))
+    torch.cuda.synchronize()
+    seconds["AddWF"] = round(time.perf_counter() - t0, 3)
+    # float32 with a cusp b basis: the self pair (r = 0) meets f'/r = 1e12
+    # and must give no inf or nan (ThreeBodyJastrow zeroes its table there)
+    t0 = time.perf_counter()
+    cusp = ThreeBodyJastrow(mol, b_basis=default_ee_basis(2))
+    c = rng.normal(scale=0.05, size=tuple(cusp.make_params(**f64)["ccoeff"].shape))
+    shift = 0.3 * torch.randn((8, WF_CHECK_NCONF, 6, 3), dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(71)).cuda()
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        p = {"ccoeff": torch.tensor(c, device="cuda", dtype=dt)}
+        pos = configs.positions.to(dt)
+        st = cusp.recompute(p, pos)
+        g, lap = cusp.gradient_laplacian_many(p, st, tuple(range(8)), pos)
+        ratios = cusp.testvalue_aux_all(p, st, pos.transpose(0, 1)[:, :, None, :] + shift.to(dt))
+        out[dt] = {"u": st.u, "grad": g, "lap": lap, "ratio": ratios}
+    cusp_err = {}
+    for k, v in out[torch.float32].items():
+        ref = out[torch.float64][k]
+        check(bool(torch.all(torch.isfinite(v))), f"float32 cusp-basis three-body {k} not finite")
+        cusp_err[k] = float(torch.max(torch.abs(v.double() - ref)) / torch.max(torch.abs(ref)))
+        check(cusp_err[k] <= CUSP32_RTOL,
+              f"float32 cusp-basis three-body {k} {cusp_err[k]:.3g} from float64 "
+              f"(tolerance {CUSP32_RTOL})")
+    torch.cuda.synchronize()
+    seconds["ThreeBodyJastrow cusp float32"] = round(time.perf_counter() - t0, 3)
+    print(f"phase 19: run_all passed on the card (float64, {WF_CHECK_NCONF} walkers), s: "
+          f"{json.dumps(seconds)}; {card}", flush=True)
+    print(f"phase 19: cusp-basis three-body Jastrow, float32 finite, largest error relative to "
+          f"float64: {json.dumps(cusp_err)} (tolerance {CUSP32_RTOL})", flush=True)
+
+
+def config3_phases(t_start, card, counters, opt):
+    """Phases 19-22: the new wavefunctions' contracts, the three-body Jastrow
+    optimized at 2048 walkers, BASELINE config 3 VMC and DMC with T-moves.
+    `counters` {kernel: launch counter}; `opt` what optimization_phases
+    returns (phase 17's optimized parameters, walkers and VMC energy).
+    Returns the launch counts and numbers the kernels' line carries."""
+    from pyqmc_tpu_torch.entry import h2o_casci_j3_setup
+    from pyqmc_tpu_torch.method import linemin
+    from pyqmc_tpu_torch.method.dmc import draw_dmc_streams, make_dmc_block, rundmc
+    from pyqmc_tpu_torch.method.vmc import draw_streams, make_vmc_block, vmc
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+    from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
+    from pyqmc_tpu_torch.observables.energy import kinetic_energy
+    from pyqmc_tpu_torch.observables.transform import LinearTransform
+    from pyqmc_tpu_torch.ops.move_sweep import sweep_plain
+    from pyqmc_tpu_torch.ops.tmove_sweep import tmove_sweep_plain
+    from pyqmc_tpu_torch.system.io import load_npz
+    from pyqmc_tpu_torch.wftools import generate_wf
+
+    none = {k: 0 for k in counters}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    print(f"phase 19 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    wavefunction_contracts(card)
+    t19 = time.perf_counter() - t19
+
+    print(f"phase 20 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    # phase 20: the two- and three-body Jastrow optimized from phase 17's two-body one
+    mol, mf = load_npz()
+    wf, params0, to_opt = generate_wf(mol, mf, jastrow3=True, dtype=torch.float32)
+    check(params0["wf2"]["ccoeff"].device.type == "cuda",
+          "generate_wf's default device is not the GPU")
+    params0["wf1"] = {k: v.clone() for k, v in opt["params"]["wf1"].items()}
+    lt = LinearTransform(params0, to_opt)
+    check(lt.nparams == J3_NPARAMS, f"{lt.nparams} optimized parameters, not {J3_NPARAMS}")
+    energy = EnergyAccumulator(mol)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    its = []
+
+    def per_iteration(rec, info):
+        its.append((rec, info, read_counts()))
+        reset_counts()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    params, oconfigs, records = linemin.line_minimization(
+        wf, params0, opt["configs"], lt, energy, generator=gen, max_iterations=J3_ITERATIONS,
+        vmc_blocks=J3_SR_BLOCKS, callback=per_iteration)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    nsr, ncand = J3_SR_BLOCKS * 10, 6
+    for rec, info, n in its:
+        sec = info["seconds"]
+        print(f"phase 20 iteration {rec['iteration']}: E={rec['energy']:.6f} +- "
+              f"{rec['energy_err']:.6f} |g|={rec['gnorm']:.4f} tau={rec['tau']} SR step "
+              f"{sec['vmc'] / nsr * 1e3:.2f} ms (SR VMC {sec['vmc']:.3f} s, solve "
+              f"{sec['solve']:.4f}, correlated sampling {sec['correlated']:.3f}); launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+        check(all(bool(np.all(np.isfinite(rec[k])))
+                  for k in ("energy", "energy_err", "gnorm", "line_energies")),
+              f"non-finite optimization record {rec}")
+        # K3 once per energy: each SR step's, the correlated sampler's reference and candidates'
+        check(n == {**none, "value_mo": nsr + 1 + ncand},
+              f"kernel launches of a three-body optimization iteration: {n}")
+    dx = float(torch.linalg.norm((lt.serialize(params) - lt.serialize(params0)).double()))
+    check(dx > 0, "the optimization left the parameters where they were")
+    reset_counts()
+    t0 = time.perf_counter()
+    vblocks, vconfigs = vmc(wf, params, oconfigs, nblocks=J3_VMC_BLOCKS, nsteps_per_block=NSTEPS,
+                            tstep=TSTEP, accumulators={"energy": energy}, generator=gen)
+    torch.cuda.synchronize()
+    t_vmc = time.perf_counter() - t0
+    vlaunches = read_counts()
+    for b in vblocks:
+        print(f"phase 20 VMC block {b['block']}: E={b['energytotal']:.6f} "
+              f"ecp={b['energyecp']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in three-body VMC block {b['block']}")
+    check(vlaunches == {**none, "value_mo": J3_VMC_BLOCKS * NSTEPS},
+          f"kernel launches of the three-body VMC: {vlaunches}")
+    e_v = np.array([b["energytotal"] for b in vblocks[1:]])
+    m_v, sem_v = float(np.mean(e_v)), float(np.std(e_v, ddof=1) / np.sqrt(len(e_v)))
+    ref = J3_OPT_REF
+    below17 = opt["e_vmc"] - m_v
+    comb17 = float(np.hypot(sem_v, opt["sem_vmc"]))
+    print(f"phase 20: {len(records)} iterations in {t_opt:.2f} s ({t_opt / len(records):.3f} s "
+          f"each), E {records[0]['energy']:.6f} -> {records[-1]['energy']:.6f} Ha, |x - x0| "
+          f"{dx:.4f}; optimized VMC E(blocks 2-{J3_VMC_BLOCKS})={m_v:.6f} +- {sem_v:.6f} Ha, "
+          f"{below17:.6f} Ha below phase 17's {opt['e_vmc']:.6f} +- {opt['sem_vmc']:.6f} "
+          f"({below17 / comb17:.2f} combined SEM); JAX CPU reference {ref['e']:.6f} +- "
+          f"{ref['sem']:.6f} Ha, {m_v - ref['e']:+.6f} Ha (bound {J3_OPT_BOUND} Ha); VMC "
+          f"{t_vmc:.2f} s; {card}", flush=True)
+    check(m_v <= opt["e_vmc"] + 3 * comb17,
+          f"three-body VMC energy {m_v} above phase 17's {opt['e_vmc']} by more than 3 combined "
+          "SEM")
+    check(abs(m_v - ref["e"]) <= J3_OPT_BOUND,
+          f"three-body VMC energy {m_v} off the JAX reference {ref['e']} by more than "
+          f"{J3_OPT_BOUND} Ha")
+    t20 = time.perf_counter() - t20
+
+    print(f"phase 21 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t21 = time.perf_counter()
+    # phase 21: BASELINE config 3 VMC through the entry point, on the committed coefficients
+    mol, wf, params, configs, acc = h2o_casci_j3_setup(NCONF, dtype=torch.float32)
+    check(configs.positions.device.type == "cuda", "h2o_casci_j3_setup's default device is not "
+          "the GPU")
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    reset_counts()
+    t0 = time.perf_counter()
+    cblocks, cconfigs = vmc(wf, params, configs, nblocks=CONFIG3_NBLOCKS, nsteps_per_block=NSTEPS,
+                            tstep=TSTEP, accumulators=acc, generator=gen)
+    torch.cuda.synchronize()
+    t_c3 = time.perf_counter() - t0
+    c3launches = read_counts()
+    for b in cblocks:
+        print(f"phase 21 block {b['block']}: E={b['energytotal']:.6f} ecp={b['energyecp']:.6f} "
+              f"ke={b['energyke']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in config 3 block {b['block']}")
+    check(c3launches == {**none, "value_mo": CONFIG3_NBLOCKS * NSTEPS},
+          f"kernel launches of config 3 VMC: {c3launches}")
+    e_c = np.array([b["energytotal"] for b in cblocks[1:]])
+    m_c, sem_c = float(np.mean(e_c)), float(np.std(e_c, ddof=1) / np.sqrt(len(e_c)))
+    a_c = float(np.mean([b["acceptance"] for b in cblocks[1:]]))
+    cref = CONFIG3_REF
+    cwindow = 3 * float(np.hypot(sem_c, cref["sem"]))
+    step_ms = float(np.mean([b["block time"] for b in cblocks[1:]])) / NSTEPS * 1e3
+    zc = (m_c - cref["e"]) / np.hypot(sem_c, cref["sem"])
+    print(f"phase 21: launches {c3launches}, E(blocks 2-{CONFIG3_NBLOCKS})={m_c:.6f} +- "
+          f"{sem_c:.6f} Ha, acc={a_c:.4f}; JAX CPU reference {cref['e']:.6f} +- {cref['sem']:.6f} "
+          f"Ha, acc {cref['acceptance']:.4f}, {zc:+.2f} combined SEM (window {cwindow:.6f} Ha); "
+          f"step {step_ms:.1f} ms ({NCONF / step_ms * 1e3:.1f} walker-steps/s), {t_c3:.2f} s for "
+          f"{CONFIG3_NBLOCKS} blocks; {card}", flush=True)
+    check(abs(m_c - cref["e"]) <= cwindow,
+          f"config 3 VMC energy {m_c} off the JAX reference {cref['e']} by more than 3 combined "
+          f"SEM ({cwindow})")
+    # a K3 block and a plain-orbital block on one set of streams
+    n = CONFIG3_CHECK_NCONF
+    kpos, kwrap = cconfigs.positions[:n].clone(), cconfigs.wrap[:n].clone()
+    kblock = make_vmc_block(wf, acc, cconfigs.geometry, TSTEP, CONFIG3_CHECK_NSTEPS)
+    kst = draw_streams(gen, CONFIG3_CHECK_NSTEPS, 8, n, TSTEP, "cuda", torch.float32)
+    reset_counts()
+    kp, _, kavg = kblock(params, kpos, kwrap, None, streams=kst)
+    check(read_counts() == {**none, "value_mo": CONFIG3_CHECK_NSTEPS},
+          f"the config 3 K3 block's launches: {read_counts()}")
+    with plain_orbitals():
+        pp, _, pavg = kblock(params, kpos, kwrap, None, streams=kst)
+    check(read_counts() == {**none, "value_mo": CONFIG3_CHECK_NSTEPS},
+          f"the config 3 plain-orbital block launched {read_counts()}")
+    check(torch.equal(kp, pp), "the K3 and plain-orbital config 3 blocks moved differently")
+    check(float(kavg["acceptance"]) == float(pavg["acceptance"]),
+          f"acceptance {float(kavg['acceptance'])} with K3, {float(pavg['acceptance'])} without")
+    rel = {k: abs(float(kavg[k]) - float(pavg[k])) / abs(float(pavg[k]))
+           for k in kavg if k.startswith("energy") and k != "energyii"}
+    check(all(r <= 1e-5 for r in rel.values()), f"K3 against plain config 3 energies: {rel}")
+    print(f"phase 21: {n}-walker {CONFIG3_CHECK_NSTEPS}-step block with K3 against plain orbitals "
+          f"on one set of streams: positions and acceptance identical, energies' relative "
+          f"differences {json.dumps(rel)}", flush=True)
+    tblock = make_vmc_block(wf, acc, cconfigs.geometry, TSTEP, CONFIG3_TRACE_NSTEPS)
+    ours_c3 = report_trace(
+        "phase 21", f"{CONFIG3_TRACE_NSTEPS}-step config 3 VMC block", CONFIG3_TRACE_NSTEPS,
+        traced(lambda: tblock(params, cconfigs.positions, cconfigs.wrap, gen)),
+        step_ms * CONFIG3_TRACE_NSTEPS / 1e3)
+    # the pieces of a step, each alone, and the three-body Jastrow's share of each
+    cpos, cwrap = cconfigs.positions, cconfigs.wrap
+    cstate = wf.recompute(params, cpos)
+    cst = draw_streams(gen, 1, 8, NCONF, TSTEP, "cuda", torch.float32)
+    ecp = acc["energy"].ecp_acc
+    j3, pj3, sj3 = wf.wfs[2], params["wf2"], cstate[2]
+    moved = cpos + 0.1
+    half = torch.arange(NCONF, device="cuda") % 2 == 0
+
+    def j3_sweep():
+        s = sj3
+        for e in range(8):
+            _, aux = j3.move_begin(pj3, s, e, s.positions[:, e])
+            _, _, saved = j3.move_finish(pj3, s, e, moved[:, e], aux)
+            s = j3.updateinternals(pj3, s, e, moved[:, e], half, saved)
+
+    aux = cpos.transpose(0, 1)[:, :, None, :] + 0.3 * torch.randn(
+        (8, NCONF, 6, 3), generator=gen, device="cuda")
+    pieces = {
+        "vmc_sweep_ms": cuda_ms(lambda: sweep_plain(wf, cconfigs.geometry, TSTEP, 1.0, params,
+                                                    cpos, cwrap, cstate, cst["gauss"][0],
+                                                    cst["unif"][0]), 2),
+        "j3_sweep_ms": cuda_ms(j3_sweep, 2),
+        "kinetic_ms": cuda_ms(lambda: kinetic_energy(wf, params, cstate, cpos), 3),
+        "j3_kinetic_ms": cuda_ms(lambda: j3.gradient_laplacian_many(pj3, sj3, tuple(range(8)),
+                                                                    cpos), 3),
+        "ecp_ms": cuda_ms(lambda: ecp(wf, params, cstate, cpos, cst["rot"][0]), 3),
+        "j3_ecp_ratios_ms": cuda_ms(lambda: j3.testvalue_aux_all(pj3, sj3, aux), 3),
+        "coulomb_ms": cuda_ms(lambda: acc["energy"].coulomb.energy(cpos), 3),
+        "recompute_ms": cuda_ms(lambda: wf.recompute(params, cpos), 3),
+        "j3_recompute_ms": cuda_ms(lambda: j3.recompute(pj3, cpos), 3)}
+    print(f"phase 21: pieces of a step alone (CUDA events, host work included), ms: "
+          f"{json.dumps(pieces)}; {card}", flush=True)
+    t21 = time.perf_counter() - t21
+
+    print(f"phase 22 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t22 = time.perf_counter()
+    # phase 22: config 3 DMC with T-moves from phase 21's walkers
+    reset_counts()
+    t0 = time.perf_counter()
+    dblocks, dconfigs, dweights = rundmc(
+        wf, params, cconfigs, nblocks=CONFIG3_DMC_NBLOCKS, nsteps_per_block=DMC_NSTEPS,
+        tstep=DMC_TSTEP, energy_acc=acc["energy"], generator=gen,
+        warmup_vmc_blocks=CONFIG3_DMC_WARMUP)
+    torch.cuda.synchronize()
+    t_dmc = time.perf_counter() - t0
+    dlaunches = read_counts()
+    for b in dblocks:
+        print(f"phase 22 block {b['block']}: E={b['energytotal']:.6f} w={b['weight']:.5f} "
+              f"e_trial={b['e_trial']:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    # K3 once per energy and once per electron of each T-move sweep, as in phase 16
+    nwarm = CONFIG3_DMC_WARMUP * 10
+    k3_block = 1 + DMC_NSTEPS * (1 + 8)
+    dexpect = {**none, "value_mo": nwarm + 1 + CONFIG3_DMC_NBLOCKS * k3_block}
+    check(dlaunches == dexpect,
+          f"kernel launches of config 3 DMC: {dlaunches}, expected {dexpect}")
+    for b in dblocks:
+        check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
+        check(0.5 < b["weight"] < 2.0, f"block mean weight {b['weight']} outside (0.5, 2)")
+        check(b["acceptance"] > 0.9, f"DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(dweights))) and bool(torch.all(dweights > 0)),
+          "final config 3 weights are not finite and positive")
+    e_d = float(np.mean([b["energytotal"] for b in dblocks[-CONFIG3_DMC_NLAST:]]))
+    e_warm = 2 * dblocks[0]["e_est"] - dblocks[0]["energytotal"]
+    check(-17.6 < e_d < -16.9, f"config 3 DMC energy {e_d} outside (-17.6, -16.9) Ha")
+    check(e_d < e_warm + 0.05, f"config 3 DMC energy {e_d} above the warm-up VMC energy {e_warm}")
+    dstep_ms = float(np.mean([b["block time"] for b in dblocks])) / DMC_NSTEPS * 1e3
+    dst = draw_dmc_streams(gen, 1, 8, NCONF, DMC_TSTEP, "cuda", torch.float32)
+    dpos, dwrap = dconfigs.positions, dconfigs.wrap
+    dstate = wf.recompute(params, dpos)
+    k3 = counters["value_mo"].n
+    sweeps = {
+        "tmove_sweep_ms": cuda_ms(lambda: tmove_sweep_plain(
+            wf, dconfigs.geometry, ecp, DMC_TSTEP, params, dpos, dwrap, dstate, dst["tqrot"][0],
+            dst["u_sel"][0], dst["u_acc"][0]), 2),
+        "dmc_sweep_ms": cuda_ms(lambda: sweep_plain(
+            wf, dconfigs.geometry, DMC_TSTEP, 1.0, params, dpos, dwrap, dstate, dst["gauss"][0],
+            dst["unif"][0], mode="dmc"), 2)}
+    check(counters["value_mo"].n - k3 == 3 * 8, "the T-move sweep did not launch K3 once per "
+          "electron")
+    print(f"phase 22: launches {dlaunches} ({k3_block} K3 per block), E(last "
+          f"{CONFIG3_DMC_NLAST} blocks)={e_d:.6f} Ha, warm-up VMC E={e_warm:.6f} Ha; step "
+          f"{dstep_ms:.1f} ms ({NCONF / dstep_ms * 1e3:.1f} walker-steps/s), {t_dmc:.2f} s for "
+          f"{CONFIG3_DMC_WARMUP} warm-up + {CONFIG3_DMC_NBLOCKS} DMC blocks; the T-move and "
+          f"drift-diffusion sweeps alone, ms: {json.dumps(sweeps)}; {card}", flush=True)
+    t22 = time.perf_counter() - t22
+    print(f"phases 19-22: {t19:.1f} + {t20:.1f} + {t21:.1f} + {t22:.1f} = "
+          f"{t19 + t20 + t21 + t22:.1f} s", flush=True)
+    nit = len(records)
+    return {"j3_opt_per_iteration": sum(n["value_mo"] for _, _, n in its) // nit,
+            "j3_opt_vmc": vlaunches["value_mo"], "config3_vmc": c3launches["value_mo"],
+            "config3_dmc": dlaunches["value_mo"], "config3_trace": ours_c3}
 
 
 def main():
@@ -2116,6 +2535,7 @@ def main():
                     / p32["redesigned"]["value_mo"]["points"])
     c64, c32, slaunches, mlaunches, ours_sj = casci_phases(t_start, card, counters, per_point_64)
     opt = optimization_phases(t_start, card, counters, tk / NSTEPS)
+    c3 = config3_phases(t_start, card, counters, opt)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -2204,6 +2624,13 @@ def main():
             entry.update({"launches_casci_vmc": slaunches[name],
                           "launches_casci_dmc": mlaunches[name],
                           "device_ms_casci_vmc": device_ms(ours_sj, f"{name}_kernel")})
+            # the three-body optimization and BASELINE config 3 (phases 20-22)
+            entry.update({"launches_j3_opt_per_iteration": c3["j3_opt_per_iteration"],
+                          "launches_j3_opt_vmc": c3["j3_opt_vmc"],
+                          "launches_config3_vmc": c3["config3_vmc"],
+                          "launches_config3_dmc": c3["config3_dmc"],
+                          "device_ms_config3_vmc": device_ms(c3["config3_trace"],
+                                                             f"{name}_kernel")})
             for shape, c in c32.items():
                 entry.update({f"casci_{shape}_{k}": c[k] for k in (
                     "points", "columns", "device_ms", "wrapper_ms", "wrapper_rows_ms", "plain_ms",

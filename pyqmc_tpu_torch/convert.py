@@ -6,7 +6,19 @@ MultiplyWF(Slater, JastrowSpin) parameter tree
 {"wf0": {det_coeff (ndet,), mo_coeff_alpha (nao, norb_up), mo_coeff_beta},
 "wf1": {acoeff (natom, na, 2), bcoeff (nb, 3)}} keeps its keys and shapes,
 for any determinant expansion: the CASCI(8e,8o) H2O expansion's det_coeff
-is (1098,) and its state's inv_up (nconf, 70, 4, 4).
+is (1098,) and its state's inv_up (nconf, 70, 4, 4). The other factors'
+leaves, the same on both sides:
+
+  ThreeBodyJastrow  {"ccoeff": (natom, na, na, nb, 3)}, C[I, k, l, m, ch]
+                    before its (k, l) symmetrization
+  GeminalJastrow    {"gcoeff": (nao, nao)} (the primitive cell's AOs on a
+                    cell), before its symmetrization
+  GPSJastrow        {"alpha": (s,), "f": 0-d, "Xsupport": (s, 2, 3)}
+  AddWF             {"coeff": (nwf,), "wf0": .., "wf1": ..}, each wfN its
+                    component's tree
+
+so generate_wf(mol, mf, jastrow3=True)'s tree is {"wf0": Slater's, "wf1":
+JastrowSpin's, "wf2": {"ccoeff"}}.
 """
 
 from __future__ import annotations
@@ -14,7 +26,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.jastrow import JastrowState
 from .models.slater import SlaterState
 from .utils.dtypes import real_dtype, resolve_device
 
@@ -51,8 +62,12 @@ def slater_state_from_numpy(st, device=None, dtype=None) -> SlaterState:
     return SlaterState(*(_t(getattr(st, f), device, dtype) for f in SlaterState._fields))
 
 
-def jastrow_state_from_numpy(st, device=None, dtype=None) -> JastrowState:
-    return JastrowState(*(_t(getattr(st, f), device, dtype) for f in JastrowState._fields))
+def state_from_numpy(cls, st, device=None, dtype=None):
+    """A JAX factor's state (a NamedTuple whose fields are numpy arrays) ->
+    the port's state class `cls` with the same fields: JastrowState,
+    Jastrow3State (positions, u) or GenericJastrowState (positions, u, phi,
+    ssum) of a geminal or GPS Jastrow."""
+    return cls(*(_t(getattr(st, f), device, dtype) for f in cls._fields))
 
 
 def wrap_from_numpy(wrap, device=None) -> torch.Tensor:

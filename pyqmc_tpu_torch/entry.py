@@ -17,6 +17,14 @@ energy are the plain versions, whose float32 orbital values run on K3.
 
     mol, wf, params, configs, acc = h2o_casci_setup(nconf=2048)
 
+`h2o_casci_j3_setup`: BASELINE config 3 on the same H2O, the CASCI
+expansion times the two- and three-body Jastrow of
+generate_wf(mol, mf, mc=..., jastrow3=True), the Jastrow coefficients read
+from the committed `data/h2o_j3_params.npz`; outside the same gates, its
+float32 orbital values run on K3.
+
+    mol, wf, params, configs, acc = h2o_casci_j3_setup(nconf=2048)
+
 `diamond_setup` (counterpart of benchmarks/c_solid_benchmark.py:123-154,
 the TRIM branch): the 2x2x2 supercell of ccECP diamond-C, 16 atoms and 64
 valence electrons, k-point Slater (8 TRIM k-points x 4 occupied orbitals
@@ -40,11 +48,11 @@ from .models.multiply import MultiplyWF
 from .models.orbitals import KPointOrbitals
 from .models.slater import DeterminantExpansion, Slater
 from .observables.accumulators import EnergyAccumulator
-from .system.io import (DIAMOND_PRIMITIVE, H2O_CAS88, H2O_CCECP, load_cell_npz,
+from .system.io import (DIAMOND_PRIMITIVE, H2O_CAS88, H2O_CCECP, H2O_J3_PARAMS, load_cell_npz,
                         load_expansion_npz, load_npz)
 from .system.supercell import get_supercell
 from .utils.dtypes import real_dtype, resolve_device
-from .wftools import default_jastrow_basis
+from .wftools import default_jastrow_basis, generate_wf
 
 
 def h2o_setup(nconf, device=None, dtype=None, seed=0, path=H2O_CCECP):
@@ -82,6 +90,32 @@ def h2o_casci_setup(nconf, device=None, dtype=None, seed=0, jastrow=True):
     if jastrow:
         wf = MultiplyWF(wf, JastrowSpin(mol))
     params = wf.make_params(device, dtype)
+    configs = initial_guess(mol, nconf, generator=torch.Generator().manual_seed(seed),
+                            device=device, dtype=dtype)
+    return mol, wf, params, configs, {"energy": EnergyAccumulator(mol)}
+
+
+def h2o_casci_j3_setup(nconf, device=None, dtype=None, seed=0, params_path=H2O_J3_PARAMS):
+    """(mol, wf, params, configs, accumulators) of BASELINE config 3 on
+    ccECP H2O: MultiplyWF(Slater of the CASCI(8e,8o) expansion, JastrowSpin,
+    ThreeBodyJastrow) from generate_wf(mol, mf, mc=(expansion, det_coeff),
+    jastrow3=True), with acoeff, bcoeff and ccoeff read from params_path.
+    Device, dtype and walkers as in h2o_setup; the energy accumulator is
+    h2o_setup's, dense nonlocal ECP every step."""
+    device = resolve_device(device)
+    dtype = dtype or real_dtype(device)
+    mol, mf = load_npz(H2O_CCECP)
+    d = load_expansion_npz(H2O_CAS88)
+    exp = DeterminantExpansion(occ_up=d["occ_up"], occ_dn=d["occ_dn"], map_up=d["map_up"],
+                               map_dn=d["map_dn"])
+    wf, params, _ = generate_wf(mol, mf, mc=(exp, d["det_coeff"]), jastrow3=True, device=device,
+                                dtype=dtype)
+    with np.load(params_path) as z:
+        for leaf, key in (("wf1", "acoeff"), ("wf1", "bcoeff"), ("wf2", "ccoeff")):
+            if tuple(z[key].shape) != tuple(params[leaf][key].shape):
+                raise ValueError(f"{params_path}: {key} has shape {z[key].shape}, the "
+                                 f"wavefunction's is {tuple(params[leaf][key].shape)}")
+            params[leaf][key] = torch.as_tensor(z[key], dtype=dtype, device=device)
     configs = initial_guess(mol, nconf, generator=torch.Generator().manual_seed(seed),
                             device=device, dtype=dtype)
     return mol, wf, params, configs, {"energy": EnergyAccumulator(mol)}

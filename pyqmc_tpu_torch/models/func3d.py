@@ -6,6 +6,7 @@ at rcut and finite at r = 0 and r >= rcut. The CUDA kernels evaluate the
 same formulas (csrc/sj_device.cuh).
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -21,14 +22,23 @@ class BasisFn(NamedTuple):
 
 def polypade_all(r, beta, rcut):
     """PolyPade: f = (1-z)/(1+beta z), z = x^2 (6 - 8x + 3x^2), x = r/rcut."""
+    return _polypade(r, beta, 1.0 + beta, 2.0 * beta * (1.0 + beta), rcut)
+
+
+def _polypade(r, beta, onepb, c2, rcut):
+    """polypade_all with 1 + beta and 2 beta (1 + beta) given: floats, or
+    tensors of one entry per function that broadcast against r. A number
+    over a tensor is computed by torch as the tensor's reciprocal times the
+    number, and that is written out here, so tensors holding the floats'
+    values give the same bits as the floats."""
     x = torch.clamp(r / rcut, 0.0, 1.0)
     z = x * x * (6.0 - 8.0 * x + 3.0 * x * x)
     dzdx = 12.0 * x * (1.0 - x) ** 2
     d2zdx2 = 12.0 * (1.0 - x) * (1.0 - 3.0 * x)
     den = 1.0 + beta * z
     f = (1.0 - z) / den
-    dfdz = -(1.0 + beta) / (den * den)
-    d2fdz2 = 2.0 * beta * (1.0 + beta) / (den * den * den)
+    dfdz = torch.reciprocal(den * den) * -onepb
+    d2fdz2 = torch.reciprocal(den * den * den) * c2
     fp = dfdz * dzdx / rcut
     fpp = (d2fdz2 * dzdx * dzdx + dfdz * d2zdx2) / (rcut * rcut)
     inside = r < rcut
@@ -70,14 +80,29 @@ def basis_all(b: BasisFn, r):
     raise ValueError(f"unknown basis kind {b.kind}")
 
 
+@functools.lru_cache(maxsize=None)
+def _polypade_constants(betas, device, dtype):
+    """(beta, 1 + beta, 2 beta (1 + beta)) of each beta, formed in Python
+    floats as polypade_all forms them, as tensors (nk,)."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device)
+                 for v in ([b for b in betas], [1.0 + b for b in betas],
+                           [2.0 * b * (1.0 + b) for b in betas]))
+
+
 def eval_basis_all(basis, r):
-    """(value, f'/r, lap) of a tuple of BasisFn at r (...,): each (..., nk)."""
+    """(value, f'/r, lap) of a tuple of BasisFn at r (...,): each (..., nk).
+    A basis of polypade functions of one cutoff is evaluated in one
+    broadcast over its betas, with the same bits as function by function;
+    any other basis function by function."""
+    if all(b.kind == "polypade" for b in basis) and len({b.rcut for b in basis}) == 1:
+        consts = _polypade_constants(tuple(b.param for b in basis), r.device, r.dtype)
+        return _polypade(r[..., None], *consts, basis[0].rcut)
     outs = [basis_all(b, r) for b in basis]
     return tuple(torch.stack([o[i] for o in outs], dim=-1) for i in range(3))
 
 
 def eval_basis_value(basis, r):
-    return torch.stack([basis_all(b, r)[0] for b in basis], dim=-1)
+    return eval_basis_all(basis, r)[0]
 
 
 def default_ee_basis(nterms=3, rcut=7.5, gamma=24.0):

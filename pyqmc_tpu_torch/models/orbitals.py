@@ -123,6 +123,34 @@ def select_pbc_images(lattice, shells, atom_coords, tol=1e-6, ngrid=6):
     return imgs[d.min(axis=(1, 2)) <= rcut + margin]
 
 
+def replicated_shells(cell, images, tol, ngrid=6):
+    """A basis of one shell per (lattice image, shell) pair that reaches the
+    home cell (distance from the shifted center to an ngrid^3 sample of the
+    cell below the shell's rcut plus the sample's margin): (GTOSpec, the
+    primitive cell's AO of each row (nao_repl,), the image of each row
+    (nao_repl,))."""
+    lat = np.asarray(cell.lattice, dtype=np.float64)
+    fr = (np.arange(ngrid) + 0.5) / ngrid
+    grid = np.array(np.meshgrid(fr, fr, fr, indexing="ij")).reshape(3, -1).T @ lat
+    margin = 0.5 * np.linalg.norm(lat.sum(axis=0)) / ngrid
+    centers, repl, ao_idx, img = [], [], [], []
+    off = 0
+    for i, L in enumerate(images):
+        for sh in cell.shells:
+            c = np.asarray(cell.atom_coords)[sh.atom] + L
+            rcut = np.sqrt(-np.log(tol) / float(np.min(sh.exps)))
+            if np.min(np.linalg.norm(grid - c[None], axis=1)) > rcut + margin:
+                continue
+            repl.append(dataclasses.replace(sh, atom=len(centers), ao_offset=off))
+            centers.append(c)
+            nsph = 2 * sh.l + 1
+            ao_idx.extend(range(sh.ao_offset, sh.ao_offset + nsph))
+            img.extend([i] * nsph)
+            off += nsph
+    return (GTOSpec.from_shells(repl, np.asarray(centers), off),
+            np.asarray(ao_idx, dtype=np.int64), np.asarray(img, dtype=np.int64))
+
+
 class KPointOrbitals:
     """Periodic k-point orbitals in the real (TRIM) mode.
 
@@ -173,31 +201,10 @@ class KPointOrbitals:
 
     def _build_replicated(self, cell, tol):
         """The culled replicated-shell spec (models/orbitals.py:220-318):
-        shell sh on image L is kept when it reaches the home cell; row r of
-        the new basis is AO _repl_ao_idx[r] of the primitive cell on an
-        image with phases _repl_phase[r] (nk,)."""
-        lat = self.lattice
-        ngrid = 6
-        fr = (np.arange(ngrid) + 0.5) / ngrid
-        grid = np.array(np.meshgrid(fr, fr, fr, indexing="ij")).reshape(3, -1).T @ lat
-        margin = 0.5 * np.linalg.norm(lat.sum(axis=0)) / ngrid
-        centers, repl, ao_idx, phase = [], [], [], []
-        off = 0
-        for L, ph in zip(self.images, self.img_phases):
-            for sh in cell.shells:
-                c = cell.atom_coords[sh.atom] + L
-                rcut = np.sqrt(-np.log(tol) / float(np.min(sh.exps)))
-                if np.min(np.linalg.norm(grid - c[None], axis=1)) > rcut + margin:
-                    continue
-                repl.append(dataclasses.replace(sh, atom=len(centers), ao_offset=off))
-                centers.append(c)
-                nsph = 2 * sh.l + 1
-                ao_idx.extend(range(sh.ao_offset, sh.ao_offset + nsph))
-                phase.extend([ph] * nsph)
-                off += nsph
-        self._repl_spec = GTOSpec.from_shells(repl, np.asarray(centers), off)
-        self._repl_ao_idx = np.asarray(ao_idx, dtype=np.int64)
-        self._repl_phase = np.asarray(phase)  # (nao_repl, nk), +-1
+        row r of the new basis is AO _repl_ao_idx[r] of the primitive cell
+        on an image with phases _repl_phase[r] (nk,)."""
+        self._repl_spec, self._repl_ao_idx, img = replicated_shells(cell, self.images, tol)
+        self._repl_phase = self.img_phases[img]  # (nao_repl, nk), +-1
         # orbital column -> k index, both spins concatenated
         self._korb = np.concatenate([
             np.concatenate([np.full(b.shape[1], k, dtype=np.int64) for k, b in enumerate(self._mo[s])])

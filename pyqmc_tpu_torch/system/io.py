@@ -31,6 +31,9 @@ H2O_CCECP = os.path.join(DATA_DIR, "h2o_ccecp-ccpvdz_ccecp_scf.npz")
 # over its first 8 MOs), written by tools/h2o_casci_data.py with the JAX
 # package's run_casci
 H2O_CAS88 = os.path.join(DATA_DIR, "h2o_ccecp_cas88.npz")
+# two- and three-body Jastrow coefficients of that H2O (acoeff, bcoeff,
+# ccoeff), optimized by the JAX package with tools/h2o_j3_jax_reference.py
+H2O_J3_PARAMS = os.path.join(DATA_DIR, "h2o_j3_params.npz")
 # KRKS diamond-C primitive cell, ccECP, 2x2x2 TRIM k-mesh (a byte-for-byte
 # copy of the JAX package's test fixture tests/files/diamond_primitive.npz)
 DIAMOND_PRIMITIVE = os.path.join(DATA_DIR, "diamond_primitive.npz")

@@ -1,10 +1,13 @@
 """Wavefunction factories (counterpart of pyqmc_tpu/wftools.py:17-133).
 
     wf, params, to_opt = generate_wf(mol, mf)   # Slater x two-body Jastrow, GPU
+    wf, params, to_opt = generate_wf(mol, mf, jastrow3=True)   # x three-body Jastrow
+    wf, params, to_opt = generate_wf(mol, mf, jastrow=[generate_gps_jastrow])
 
 `to_opt` freezes the Slater part (determinant and orbital coefficients)
 and the Jastrow's electron-electron cusp row, as in the JAX package: the
-common workflow optimizes the Jastrow first.
+common workflow optimizes the Jastrow first. The layout of a product is
+{"wf0": Slater's, "wf1": .., "wf2": ..} in the order of the factors.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 
 from .models import func3d
 from .models.jastrow import JastrowSpin
+from .models.jastrow3 import ThreeBodyJastrow
 from .models.multiply import MultiplyWF
 from .models.slater import Slater
 
@@ -62,19 +66,67 @@ def generate_jastrow(mol, na=4, nb=3, rcut=None):
     return jas, {"acoeff": True, "bcoeff": bmask}
 
 
+def generate_jastrow3(mol, na=3, nb=3, rcut=None):
+    """Three-body Jastrow on default_jastrow_basis without the cusp
+    function; returns (jastrow, to_opt) with every ccoeff free."""
+    a_basis, b_basis = default_jastrow_basis(mol, na, nb, rcut)
+    return ThreeBodyJastrow(mol, a_basis=a_basis, b_basis=b_basis[1:]), {"ccoeff": True}
+
+
+def generate_gps_jastrow(mol, n_support=4, init_spread=1.0, seed=0, optimize_Xsupport=True):
+    """Gaussian-process-state pair Jastrow; returns (wf, to_opt)."""
+    from .models.generic_jastrow import GPSJastrow
+
+    wf = GPSJastrow(mol, n_support=n_support, init_spread=init_spread, seed=seed)
+    return wf, {"alpha": True, "f": True, "Xsupport": bool(optimize_Xsupport)}
+
+
+def generate_geminal_jastrow(mol):
+    """Geminal (AO-pair) Jastrow; returns (wf, to_opt)."""
+    from .models.generic_jastrow import GeminalJastrow
+
+    return GeminalJastrow(mol), {"gcoeff": True}
+
+
 def generate_wf(mol, mf, jastrow=True, jastrow3=False, jastrow_kws=None, mc=None, device=None,
                 dtype=None):
-    """Slater x two-body Jastrow; returns (wf, params, to_opt), params on
-    the GPU unless `device` says otherwise (as make_params). jastrow=False
-    gives the Slater alone."""
-    if callable(jastrow) or isinstance(jastrow, (list, tuple)) or jastrow3:
-        raise NotImplementedError(
-            "Jastrow factories and the three-body Jastrow (ROADMAP queue 1 item 5) are not "
-            "ported")
-    slater = generate_slater(mol, mf, mc=mc)
-    sl_opt = {"det_coeff": False, "mo_coeff_alpha": False, "mo_coeff_beta": False}
-    if not jastrow:
-        return slater, slater.make_params(device, dtype), sl_opt
-    jas, j_opt = generate_jastrow(mol, **(jastrow_kws or {}))
-    wf = MultiplyWF(slater, jas)
-    return wf, wf.make_params(device, dtype), {"wf0": sl_opt, "wf1": j_opt}
+    """Slater x Jastrow factors; returns (wf, params, to_opt), params on the
+    GPU unless `device` says otherwise (as make_params).
+
+    jastrow: True, the two-body Jastrow of generate_jastrow (jastrow_kws its
+    keywords); False, none; or a factory f(mol, **kws) -> (wf, to_opt), such
+    as generate_gps_jastrow or generate_geminal_jastrow, or a list of them
+    (jastrow_kws then a list of keyword dicts, one per factory).
+    jastrow3=True appends the three-body Jastrow of generate_jastrow3. With
+    no Jastrow the Slater is returned alone; mc as in generate_slater."""
+    wfs = [generate_slater(mol, mf, mc=mc)]
+    to_opts = [{"det_coeff": False, "mo_coeff_alpha": False, "mo_coeff_beta": False}]
+    if callable(jastrow) or isinstance(jastrow, (list, tuple)):
+        factories = list(jastrow) if isinstance(jastrow, (list, tuple)) else [jastrow]
+        kws = jastrow_kws or [{}] * len(factories)
+        kws = kws if isinstance(kws, (list, tuple)) else [kws]
+        if len(kws) != len(factories):
+            raise ValueError(f"{len(factories)} Jastrow factories but {len(kws)} keyword dicts")
+        made = [fac(mol, **kw) for fac, kw in zip(factories, kws)]
+    elif jastrow:
+        made = [generate_jastrow(mol, **(jastrow_kws or {}))]
+    else:
+        made = []
+    if jastrow3:
+        made.append(generate_jastrow3(mol))
+    wfs += [w for w, _ in made]
+    to_opts += [t for _, t in made]
+    if len(wfs) == 1:
+        return wfs[0], wfs[0].make_params(device, dtype), to_opts[0]
+    wf = MultiplyWF(*wfs)
+    return wf, wf.make_params(device, dtype), {f"wf{i}": t for i, t in enumerate(to_opts)}
+
+
+def read_superposition(mol, mf, wf_files, coeffs, **wf_kws):
+    """A superposition of wavefunctions read from HDF5 files (the JAX
+    package's wftools.read_superposition) needs the HDF5 input and output,
+    which is not ported."""
+    raise NotImplementedError(
+        "read_superposition reads HDF5 files; the port's HDF5 output and restart (ROADMAP "
+        "queue 1 item 4) are not ported. Build AddWF(*wfs) from generate_wf's wavefunctions "
+        "instead")

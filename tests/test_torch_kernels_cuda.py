@@ -19,7 +19,8 @@ diamond supercell at 37 and at 6 walkers, counts that leave the last
 block of the sweep's 4 walkers (groups of 4 warps) partly empty; K3 also
 at 1037 points (not a multiple of its 128-point tile) with 8, 16, 32 and
 64 orbital columns on the diamond's and on H2O's basis, and in a float32
-multi-Slater-Jastrow VMC block against plain_orbitals(). The full
+multi-Slater-Jastrow VMC block against plain_orbitals(); func3d's broadcast
+polypade basis against its per-function evaluation, bit for bit. The full
 production-size checks, float32 included, are in chip_smoke.py.
 """
 
@@ -377,6 +378,25 @@ def test_value_mo_kernel_tiles(basis, norb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_polypade_broadcast_keeps_bits_on_the_card(dtype):
+    """func3d's broadcast evaluation of a one-cutoff polypade basis gives
+    the bits of the per-function evaluation on the card too (the plain
+    Jastrows' e-ion and three-body bases take it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from pyqmc_tpu_torch.models import func3d
+
+    r = torch.tensor(np.random.default_rng(99).uniform(0.0, 9.0, size=(64, 200)), dtype=dtype,
+                     device="cuda")
+    r[0, :4], r[1, :4] = 0.0, 7.5
+    for basis in (func3d.default_ei_basis(4), func3d.default_ei_basis(3)):
+        one_by_one = [func3d.basis_all(b, r) for b in basis]
+        for i, out in enumerate(func3d.eval_basis_all(basis, r)):
+            assert torch.equal(out, torch.stack([o[i] for o in one_by_one], dim=-1)), (basis, i)
+
+
+@pytest.mark.cuda
 def test_multidet_vmc_block_k3_matches_plain():
     """One float32 VMC block of the multi-Slater-Jastrow (h2o_casci_setup,
     64 walkers, 5 steps) with K3 and inside plain_orbitals() on the same
@@ -408,4 +428,40 @@ def test_multidet_vmc_block_k3_matches_plain():
     assert torch.equal(pk, pp)
     assert float(ak["acceptance"]) == float(ap["acceptance"])
     for k in ("energytotal", "energyecp", "energyke"):
+        assert abs(float(ak[k]) - float(ap[k])) <= 1e-5 * abs(float(ap[k])), k
+
+
+@pytest.mark.cuda
+def test_config3_vmc_block_k3_matches_plain():
+    """BASELINE config 3 (h2o_casci_j3_setup: the CASCI expansion times the
+    two- and three-body Jastrow on the committed coefficients), one float32
+    VMC block of 64 walkers and 5 steps with K3 and inside plain_orbitals()
+    on the same streams: positions and acceptance identical, energies to
+    1e-5 relative; one K3 launch per step and none of K1, K2, K4, K5 (a
+    third factor is outside their gates)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pyqmc_tpu_torch.entry import h2o_casci_j3_setup
+    from pyqmc_tpu_torch.method.vmc import make_vmc_block
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+    from pyqmc_tpu_torch.ops import gto_kernels, tmove_sweep
+
+    nconf, nsteps = 64, 5
+    mol, wf, params, configs, acc = h2o_casci_j3_setup(nconf, device="cuda",
+                                                       dtype=torch.float32, seed=3)
+    block = make_vmc_block(wf, acc, configs.geometry, 0.5, nsteps)
+    streams = draw_streams(torch.Generator(device="cuda").manual_seed(5), nsteps, 8, nconf, 0.5,
+                           "cuda", torch.float32)
+    counters = (gto_kernels.VALUE_MO_LAUNCHES, move_sweep.LAUNCHES, move_sweep.DMC_LAUNCHES,
+                ecp_energy.LAUNCHES, tmove_sweep.LAUNCHES)
+    n0 = [c.n for c in counters]
+    pk, _, ak = block(params, configs.positions, configs.wrap, None, streams=streams)
+    assert [c.n - n for c, n in zip(counters, n0)] == [nsteps, 0, 0, 0, 0]
+    with plain_orbitals():
+        pp, _, ap = block(params, configs.positions, configs.wrap, None, streams=streams)
+    assert gto_kernels.VALUE_MO_LAUNCHES.n == n0[0] + nsteps
+    assert torch.equal(pk, pp)
+    assert float(ak["acceptance"]) == float(ap["acceptance"])
+    for k in ("energytotal", "energyecp", "energyke"):
+        assert bool(np.isfinite(float(ak[k])))
         assert abs(float(ak[k]) - float(ap[k])) <= 1e-5 * abs(float(ap[k])), k

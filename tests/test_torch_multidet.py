@@ -57,7 +57,7 @@ from pyqmc_tpu_torch.ops.tmove_sweep import build_fused_tmove_sweep
 from pyqmc_tpu_torch.system.io import load_expansion_npz
 
 from .test_torch_dmc import NSTEPS, TSTEP, jax_dmc_streams
-from .torch_parity import F64, compile_quick, h2o_pair, jax_ecp_draws, to_np, walkers
+from .torch_parity import F64, compile_quick, h2o_pair, jax_ecp_draws, jrun, to_np, walkers
 
 NCONF = 8
 TOL = 1e-10
@@ -110,17 +110,6 @@ def close(a, b, tol=TOL):
 
 
 # --- (a) the multi-determinant Slater ---------------------------------------
-
-_COMPILED = {}
-
-
-def jrun(tag, fn, *args):
-    """The JAX side's fn(*args), traced and compiled once per tag (with the
-    backend optimisation off: compile_quick)."""
-    if tag not in _COMPILED:
-        _COMPILED[tag] = compile_quick(jax.jit(fn), *args)
-    return _COMPILED[tag](*args)
-
 
 def _states(name, pos):
     """(jax state, port state) of wavefunction `name` at pos (numpy)."""

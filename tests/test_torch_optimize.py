@@ -103,8 +103,24 @@ def _complex_params():
     return {"a": np.array([1.0, 2.0, 3.0]), "c": np.array([1.0 + 2.0j, -0.5 + 0.25j])}
 
 
+def _factory_params(jastrow3, jastrow=True):
+    """generate_wf's JAX parameters and to_opt with the new factors' leaves:
+    the 5-d ccoeff, GPS's 0-d f and (s, 2, 3) Xsupport, geminal's gcoeff."""
+    from pyqmc_tpu.wftools import generate_geminal_jastrow, generate_gps_jastrow
+
+    (jmol, jmf), _ = h2o_pair()
+    if jastrow == "factories":
+        jastrow = [generate_gps_jastrow, generate_geminal_jastrow]
+    _, jp, jto = j_generate_wf(jmol, jmf, jastrow=jastrow, jastrow3=jastrow3)
+    return jp, jto
+
+
 TRANSFORM_CASES = {
     "h2o_to_opt": lambda: (h2o_opt()[1], h2o_opt()[2]),
+    "j3_to_opt": lambda: _factory_params(True),
+    "j3_ccoeff_only": lambda: (_factory_params(True)[0],
+                               {"wf0": False, "wf1": False, "wf2": {"ccoeff": True}}),
+    "factories_to_opt": lambda: _factory_params(True, "factories"),
     "h2o_all": lambda: (h2o_opt()[1], None),
     "complex_all": lambda: (_complex_params(), None),
     "complex_masked": lambda: (_complex_params(),
@@ -434,7 +450,33 @@ def test_factories():
     assert sl.make_params("cpu")["det_coeff"].tolist() == [0.5]
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         generate_slater(tmol, tmf, mc=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        generate_wf(tmol, tmf, jastrow3=True, device="cpu")
+    # the three-body Jastrow and the factories: JAX's to_opt layout and make_params
+    from pyqmc_tpu.wftools import generate_geminal_jastrow as j_geminal
+    from pyqmc_tpu.wftools import generate_gps_jastrow as j_gps
+    from pyqmc_tpu_torch.wftools import (generate_geminal_jastrow, generate_gps_jastrow,
+                                         read_superposition)
+
+    (jmol, jmf), _ = h2o_pair()
+    cases = [({"jastrow3": True}, {"jastrow3": True}),
+             ({"jastrow": [generate_gps_jastrow, generate_geminal_jastrow],
+               "jastrow_kws": [{"n_support": 3}, {}], "jastrow3": True},
+              {"jastrow": [j_gps, j_geminal], "jastrow_kws": [{"n_support": 3}, {}],
+               "jastrow3": True}),
+             ({"jastrow": generate_gps_jastrow, "jastrow_kws": {"seed": 2}},
+              {"jastrow": j_gps, "jastrow_kws": {"seed": 2}})]
+    for tkw, jkw in cases:
+        twf, tp, tto = generate_wf(tmol, tmf, device="cpu", **tkw)
+        _, jp, jto = j_generate_wf(jmol, jmf, **jkw)
+        assert len(twf.wfs) == len(jto) and set(tto) == set(jto)
+        for k in jto:
+            assert set(tto[k]) == set(jto[k]), k
+            for leaf in jto[k]:
+                np.testing.assert_array_equal(np.asarray(tto[k][leaf]),
+                                              np.asarray(jto[k][leaf]))
+        for a, b in zip(to_np(tp), to_np(jp)):
+            np.testing.assert_array_equal(a, b)
+    assert twf.make_params("cpu")["wf1"]["f"].shape == ()
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        read_superposition(tmol, tmf, ["a.hdf5"], [1.0])
     sl_only, p_only, t_only = generate_wf(tmol, tmf, jastrow=False, device="cpu")
     assert set(p_only) == set(t_only) == {"det_coeff", "mo_coeff_alpha", "mo_coeff_beta"}

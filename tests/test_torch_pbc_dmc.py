@@ -32,9 +32,10 @@ from pyqmc_tpu.observables.ecp import ECPAccumulator as JECP
 from pyqmc_tpu.observables.ecp import random_rotations
 
 from pyqmc_tpu_torch.configs import Geometry
-from pyqmc_tpu_torch.convert import (dmc_streams_from_numpy, jastrow_state_from_numpy,
-                                     slater_state_from_numpy, wrap_from_numpy)
+from pyqmc_tpu_torch.convert import (dmc_streams_from_numpy, slater_state_from_numpy,
+                                     state_from_numpy, wrap_from_numpy)
 from pyqmc_tpu_torch.method import dmc as tdmc
+from pyqmc_tpu_torch.models.jastrow import JastrowState
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
 from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep, sweep_plain
@@ -106,7 +107,7 @@ def test_pbc_dmc_sweep_matches_jax():
     tpos = t64(pos)
     jnp_s = jax.device_get(js)
     ts = (slater_state_from_numpy(jnp_s[0], device="cpu", dtype=F64),
-          jastrow_state_from_numpy(jnp_s[1], device="cpu", dtype=F64))
+          state_from_numpy(JastrowState, jnp_s[1], device="cpu", dtype=F64))
     twrap = wrap_from_numpy(wrap0, device="cpu")
     out = sweep_plain(twf, Geometry(tcell.lattice), TSTEP, 1.0, tp, tpos, twrap, ts, t64(gauss),
                       t64(unif), mode="dmc")

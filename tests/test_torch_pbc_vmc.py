@@ -30,9 +30,10 @@ from pyqmc_tpu.observables.accumulators import EnergyAccumulator as JEnergy
 from pyqmc_tpu.observables.ecp import ECPAccumulator as JECP
 
 from pyqmc_tpu_torch.configs import Geometry
-from pyqmc_tpu_torch.convert import (jastrow_state_from_numpy, slater_state_from_numpy,
+from pyqmc_tpu_torch.convert import (slater_state_from_numpy, state_from_numpy,
                                      wrap_from_numpy)
 from pyqmc_tpu_torch.method.vmc import make_vmc_block, vmc
+from pyqmc_tpu_torch.models.jastrow import JastrowState
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
 from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep, sweep_plain
@@ -90,7 +91,7 @@ def test_plain_sweep_matches_jax():
     # the JAX state and wrap counts carried over by the converters
     jnp_s = jax.device_get(js)
     ts = (slater_state_from_numpy(jnp_s[0], device="cpu", dtype=F64),
-          jastrow_state_from_numpy(jnp_s[1], device="cpu", dtype=F64))
+          state_from_numpy(JastrowState, jnp_s[1], device="cpu", dtype=F64))
     assert_trees_close(ts, twf.recompute(tp, tpos), atol=1e-9, rtol=1e-9)
     twrap = wrap_from_numpy(wrap0, device="cpu")
     pt, wt, st, at = sweep_plain(twf, Geometry(tcell.lattice), TSTEP, 1.0, tp, tpos, twrap, ts,

@@ -21,8 +21,9 @@ import torch
 from pyqmc_tpu.ops.gto import GTOSpec as JSpec
 from pyqmc_tpu.system.io import load_system
 
-from pyqmc_tpu_torch.convert import (jastrow_state_from_numpy, params_from_numpy,
-                                     params_to_numpy, slater_state_from_numpy)
+from pyqmc_tpu_torch.convert import (params_from_numpy, params_to_numpy,
+                                     slater_state_from_numpy, state_from_numpy)
+from pyqmc_tpu_torch.models.jastrow import JastrowState
 from pyqmc_tpu_torch.ops.gto import GTOSpec as TSpec
 from pyqmc_tpu_torch.system.io import H2O_CCECP, convert_hdf5_to_npz, load_npz
 
@@ -108,7 +109,7 @@ def test_states_from_jax():
     pos = np.random.default_rng(81).normal(scale=1.5, size=(4, 8, 3))
     js = jax.device_get(jax.jit(jwf.recompute)(jp, jnp.asarray(pos)))
     carried = (slater_state_from_numpy(js[0], device="cpu"),
-               jastrow_state_from_numpy(js[1], device="cpu"))
+               state_from_numpy(JastrowState, js[1], device="cpu"))
     own = twf.recompute(twf.make_params(device="cpu"), torch.as_tensor(pos, dtype=torch.float64))
     for a, b in zip(carried[0] + carried[1], own[0] + own[1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-10, rtol=1e-10)

@@ -240,3 +240,16 @@ def jax_ecp_draws(key, nelec, nconf):
     u = jax.vmap(lambda k: jax.random.uniform(jax.random.fold_in(k, 777), (nconf, 1),
                                               jnp.float64)[:, 0])(keys)
     return rot, u
+
+
+_COMPILED = {}
+
+
+def jrun(tag, fn, *args):
+    """The JAX side's fn(*args), traced and compiled once per tag with the
+    backend optimisation off (compile_quick): a JAX function called eagerly
+    compiles each of its operations apart, which takes ten times as long.
+    Each tag is called with arguments of one structure and shape."""
+    if tag not in _COMPILED:
+        _COMPILED[tag] = compile_quick(jax.jit(fn), *args)
+    return _COMPILED[tag](*args)
