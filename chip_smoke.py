@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six paths (pyqmc_tpu_torch, never jax), float32: on
+Drives the port's seven paths (pyqmc_tpu_torch, never jax), float32: on
 ccECP/cc-pVDZ H2O Slater-Jastrow, 2048 walkers, with the energy
 accumulator and its nonlocal ECP quadrature every step, VMC in 50-step
 blocks and fixed-node DMC with T-moves (`rundmc`) in 10-step blocks; on
@@ -15,7 +15,9 @@ determinants (`h2o_casci_setup`, 2048 walkers), VMC and DMC with T-moves;
 the wavefunction optimization of the two-body Jastrow and then of the two-
 and three-body Jastrow; and BASELINE config 3, the CASCI expansion times the
 two- and three-body Jastrow (`h2o_casci_j3_setup`, 2048 walkers), VMC and
-DMC with T-moves.
+DMC with T-moves; and BASELINE config 5, the diamond supercell at a general
+twist (complex orbitals) with VMC and DMC with T-moves, and its two-twist
+average.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -126,10 +128,10 @@ DMC with T-moves.
      0.02 Ha) of the JAX package's CPU reference (tools/
      diamond_jax_reference.py) and the acceptance within 0.05 of its
      acceptance
-  10. one periodic 10-step block with the kernels and one with the plain
+  10. one periodic 3-step block with the kernels and one with the plain
      versions (make_vmc_block(fused=False): the plain sweep, the orbitals
      without K3 and K6), timed in turns,
-     then one kernel block under torch.profiler as in phase 5
+     then one 10-step kernel block under torch.profiler as in phase 5
   11. the periodic DMC path through the entry points: diamond_setup(500)
      on the default device + rundmc(), 5 blocks x 10 steps at tstep 0.02
      after 4 VMC warm-up blocks. Launch counts exactly: 40 K7-vmc (the
@@ -147,7 +149,7 @@ DMC with T-moves.
      reference on the same schedule (tools/diamond_dmc_jax_reference.py)
      and not above the warm-up VMC energy per cell by more than 0.02 Ha
   12. the T-move sweep of one step alone (CUDA events), then one periodic
-     10-step DMC block with the plain versions (make_dmc_block(fused=False))
+     3-step DMC block with the plain versions (make_dmc_block(fused=False))
      and one with the kernels, timed in turns, then a 2-step kernel block
      under torch.profiler as in phase 5 (the profiler's read-back of a
      10-step block's 1.4 million device events took minutes)
@@ -171,12 +173,15 @@ DMC with T-moves.
      blocks after the first 2 within max(5 x combined SEM, 0.005 Ha) of the
      JAX package's CPU reference on the same schedule
      (tools/h2o_casci_jax_reference.py) and the acceptance within 0.05 of
-     its; then one block with K3 and one inside plain_orbitals() on the same
-     streams, timed in turns: positions and acceptance identical (the sweep
-     reads no value-only orbitals), energies within 1e-5 relative; then a
-     10-step block under torch.profiler as in phase 5; then the pieces of a
-     step alone (CUDA events): the plain sweep, the kinetic, ECP and
-     Coulomb energies, the recompute
+     its; then one 10-step block with K3 and one inside plain_orbitals() on
+     the same streams, timed in turns: positions and acceptance identical
+     (the sweep reads no value-only orbitals), energies within 1e-5
+     relative; then a 3-step block under torch.profiler as in phase 5; then
+     the pieces of a step alone (CUDA events): the plain sweep, the kinetic,
+     ECP and Coulomb energies, the recompute; then the per-walker ECP
+     energies (before the mean) with K3 against plain orbitals on one set of
+     rotations, to 1e-4 of each walker's energy plus the largest one's
+     magnitude
   16. multi-Slater-Jastrow DMC: rundmc() from phase 15's walkers, 5 blocks
      x 10 steps at tstep 0.02 with T-moves after 2 VMC warm-up blocks;
      launch counts exactly: K3 once per energy and once per electron per
@@ -244,14 +249,57 @@ DMC with T-moves.
      512-walker 3-step float32 block with K3 and one inside
      plain_orbitals() on one set of streams (positions and acceptance
      identical, energies to 1e-5 relative: K3's gate is float32, so a
-     float64 block launches none); a 10-step block under torch.profiler;
+     float64 block launches none); a 3-step block under torch.profiler;
      the pieces of a step alone and the three-body Jastrow's share of the
-     sweep, kinetic energy, ECP ratios and recompute
+     sweep, kinetic energy, ECP ratios and recompute; the per-walker ECP
+     energies with K3 against plain orbitals as in phase 15
   22. config 3 DMC: rundmc() from phase 21's walkers, 2 VMC warm-up blocks
      and 5 x 10 steps at tstep 0.02 with T-moves; K3 exactly once per
      energy and once per electron per T-move sweep (91 per block), none of
      the others; phase 16's windows; the T-move and drift-diffusion sweeps
      alone
+
+  23. BASELINE config 5's kernels on the general twist (diamond_twist_setup:
+     the diamond supercell's k-points shifted by (0.023, -0.017, 0.011),
+     complex orbitals), float64 and float32 (`twist_k3`): K3's pair launch
+     over [Re R | Im R] (489 AOs x 128 columns) against its plain version
+     at the ECP chunk's 252,000 points and the T-move quadrature's 48,000,
+     as the pair columns and as the complex MO values; the per-walker ECP
+     energies before the mean with K3 against plain orbitals (1e-9, 1e-4 of
+     each entry plus the largest one's magnitude); in float32 K3's device
+     time at that shape beside its bound; then testwf.run_all on the
+     general-twist Slater-Jastrow in float64 at 64 of phase 9's walkers
+     (at initial_guess's, piled near the nuclei, testwf's finite-difference
+     laplacian is roundoff-bound)
+  24. general-twist VMC: diamond_twist_setup(500) on the default device +
+     vmc() from phase 9's walkers, 4 blocks x 10 steps; per block exactly
+     20 K6 and 40 K3 (the pair launch) and no K7 (a complex wavefunction
+     runs the plain sweep); the energy per cell of the blocks after the
+     first within max(5 x combined SEM, 0.02 Ha) of the JAX package's CPU
+     reference (tools/diamond_twist_jax_reference.py vmc), the acceptance
+     within 0.05 of its; a 2-step block under torch.profiler (step time,
+     device busy time, idle share, events per step); the pieces of a step
+     alone and the largest condition number of the orbital matrices along
+     one sweep
+  25. general-twist DMC with T-moves: rundmc() from phase 24's walkers (VMC
+     equilibrated, so no warm-up) and 3 x 10 steps at tstep 0.02; launch counts
+     exactly (K6 and K3 per energy, K3 once per electron per T-move sweep,
+     no sweep kernel); each block's weight within a factor of 2 of the
+     weight its e_trial and energy predict (phase 11's window), acceptance
+     above 0.9; the energy per cell of the last 2 blocks within max(5 x
+     combined SEM, 0.02 Ha) of the JAX CPU reference on the same DMC
+     schedule (tools/diamond_twist_jax_reference.py dmc) and not above the
+     warm-up VMC's by more than 0.02 Ha
+  26. the two-twist average: twist_average_vmc over the union of the 8
+     TRIM k-points and the same 8 shifted (diamond_twist_average_setup),
+     3 blocks x 10 steps per twist, the TRIM twist from phase 9's walkers
+     and the general one from phase 24's: exactly two twists, real mode
+     at the TRIM one only; per twist launches exactly (K7 10 per block at
+     the TRIM twist, none at the general one; K6 and K3 as in phase 24);
+     each twist's energy per cell (twist_average_vmc's rule: the blocks
+     after the first) within max(5 x combined SEM, 0.02 Ha) of its JAX CPU
+     reference (tools/diamond_twist_jax_reference.py average), and the
+     reported average the mean of the two
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -287,6 +335,7 @@ DIAMOND_DMC_WARMUP = 4  # rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
 DIAMOND_DMC_NBLOCKS = 5
 DIAMOND_DMC_NLAST = 3  # blocks averaged for the energy check
 PBC_TRACE_NSTEPS = 2  # phase 12's traced block (141,000 device events a step)
+PBC_TIMED_NSTEPS = 3  # phases 10 and 12: the kernel and plain blocks timed in turns
 # tools/diamond_dmc_jax_reference.py 32 6 5 4 3 3 on the CPU, float64, the
 # same schedule: 6 runs of 32 walkers, E/cell of the last 3 blocks, its
 # standard error over the runs, and each block's mean weight (geometric
@@ -313,7 +362,8 @@ CASCI_SJ_NBLOCKS = 6  # phase 15: 50-step multi-Slater-Jastrow VMC blocks
 CASCI_DMC_WARMUP = 2  # phase 16: rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
 CASCI_DMC_NBLOCKS = 5
 CASCI_DMC_NLAST = 3
-CASCI_TRACE_NSTEPS = 10  # phase 15's traced block (the profiler's events of a
+CASCI_CHECK_NSTEPS = 10  # phase 15's K3 and plain-orbital blocks on one set of streams
+CASCI_TRACE_NSTEPS = 3  # phase 15's traced block (the profiler's events of a
 # 50-step block take minutes to read back)
 # tools/h2o_casci_jax_reference.py 256 10 2 8 on the CPU, float64, the same
 # schedule (tstep 0.5, 50-step blocks, the first 2 dropped): 8 runs of 256
@@ -351,12 +401,35 @@ J3_OPT_BOUND = 0.01  # Ha: phase 20's VMC against J3_OPT_REF (PERF.md, set befor
 J3_OPT_REF = {"e": -17.19870129539305, "sem": 0.0007760304331529966}
 CONFIG3_NBLOCKS = 6  # phase 21: 50-step VMC blocks, the first dropped
 CONFIG3_CHECK_NCONF, CONFIG3_CHECK_NSTEPS = 512, 3  # phase 21's K3 against plain block
-CONFIG3_TRACE_NSTEPS = 10
+CONFIG3_TRACE_NSTEPS = 3
 CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 5, 3  # phase 22, as phase 16
 # tools/h2o_j3_jax_reference.py vmc 256 8 71 on the CPU, float64, phase 21's
 # schedule at the committed coefficients: 8 runs of 256 walkers (see PERF.md)
 CONFIG3_REF = {"e": -17.193638541019272, "sem": 0.0011872010833002958,
                "acceptance": 0.592219482421875}
+# BASELINE config 5 (phases 23-26): diamond_twist_setup, the 2x2x2 supercell at the
+# general twist of benchmarks/c_solid_benchmark.py:130 (complex orbitals), 500 walkers
+TWIST_NBLOCKS = 4  # phase 24: 10-step VMC blocks from phase 9's walkers, the first dropped
+TWIST_NSKIP = 1
+TWIST_TRACE_NSTEPS = 2  # phase 24's traced block
+# phase 25, from phase 24's equilibrated VMC walkers, so without a VMC warm-up
+TWIST_DMC_WARMUP, TWIST_DMC_NBLOCKS, TWIST_DMC_NLAST = 0, 3, 2
+TWIST_AVG_NBLOCKS = 3  # phase 26: 10-step blocks per twist, averaged after max(1, 3 // 4)
+# tools/diamond_twist_jax_reference.py on the CPU, float64 (see PERF.md): vmc 64 4 8 4 3
+# (4 runs of 64 walkers, 8 blocks kept after 4), phase 24's energy per cell
+TWIST_VMC_REF = {"e_cell": -10.181446452474983, "sem": 0.008945233221813065,
+                 "acceptance": 0.6205337524414062}
+# dmc 32 6 3 4 2 3: 6 runs of 32 walkers, 4 VMC warm-up blocks, 3 DMC blocks, E/cell of the
+# last 2 and its standard error over the runs, each block's weight (geometric mean)
+TWIST_DMC_REF = {"e_cell": -10.880689830492036, "sem": 0.0704185173711307,
+                 "e_vmc_cell": -10.254492971456186, "acceptance": 0.9879435221354167,
+                 "weights": [1.1971367375551287, 2.088208568112148, 3.6877087312715977]}
+# average 64 4 8 4 3: per twist (the TRIM one, the general one; sorted as
+# twist_average_vmc runs them) 4 runs of 64 walkers, 8 blocks after 4 of
+# equilibration, averaged by twist_average_vmc's rule
+TWIST_AVG_REF = {"twists": [{"e_cell": -10.189744350181359, "sem": 0.01872049891038652},
+                            {"e_cell": -10.18950655135714, "sem": 0.005427665391170084}],
+                 "e_cell_average": -10.189625450769249, "e_cell_average_sem": 0.009745725101965072}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -392,10 +465,13 @@ def leaves(state):
 
 
 def cast_tree(tree, dtype):
+    """The tree's tensors in `dtype`'s precision, complex ones complex."""
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_tree(v, dtype) for v in tree)
+    if tree.is_complex():
+        return tree.to(torch.complex128 if dtype == torch.float64 else torch.complex64)
     return tree.to(dtype)
 
 
@@ -511,17 +587,18 @@ def bound_ms(nbytes, ops):
 
 # --- phase 2: kernels against their plain versions ------------------------------
 
-def path_conds(wf, params, pos, pos_new):
+def path_conds(wf, params, pos, pos_new, stride=1):
     """Per walker and spin, the largest condition number of the orbital
     matrices along a sweep from pos to pos_new (after move k the first k
-    electrons sit at their new positions), from float64 orbital values (the
-    value rows of the state's orbital cache); and the exact (float64) state
-    at pos_new."""
+    electrons sit at their new positions; every `stride`-th k and the
+    last), from float64 orbital values (the value rows of the state's
+    orbital cache); and the exact (float64) state at pos_new."""
     p64 = cast_tree(params, torch.float64)
     slater = wf.wfs[0]
     nup = slater.nup
     conds = {"up": [], "dn": []}
-    for k in range(pos.shape[1] + 1):
+    nelec = pos.shape[1]
+    for k in sorted(set(range(0, nelec + 1, stride)) | {nelec}):
         x = torch.cat([pos_new[:, :k], pos[:, k:]], dim=1).double()
         mo_up, mo_dn = slater.orbitals.eval(p64["wf0"], x, 0)
         conds["up"].append(torch.linalg.cond(mo_up[:, :nup]))
@@ -915,6 +992,25 @@ def all_plain(fn):
             return fn(*args)
 
     return run
+
+
+def per_walker_ecp(phase, wf, params, state, pos, rot, ecp, u_sel=None, tol=1e-4):
+    """The per-walker ECP energies (before the mean) with K3 against plain
+    orbitals on one set of rotations, to tol of each walker's energy plus the
+    largest one's magnitude: a block's mean energy cannot see K3's float32
+    rounding (its relative differences print 0.0), these can. Returns the
+    largest absolute and relative differences."""
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+
+    with plain_orbitals():
+        e_p = ecp(wf, params, state, pos, rot, u_sel)
+    e_k = ecp(wf, params, state, pos, rot, u_sel)
+    err = close_rel(f"{phase} per-walker ECP energy, K3 against plain", e_k, e_p, tol)
+    rel = float(torch.max(torch.abs(e_k - e_p) / torch.abs(e_p)))
+    print(f"{phase}: per-walker ECP energies, K3 against plain orbitals on one set of rotations: "
+          f"max abs difference {err:.3e} Ha, max relative {rel:.3e}, over {e_p.shape[0]} walkers "
+          f"(largest |E_ecp| {float(torch.max(torch.abs(e_p))):.4f} Ha)", flush=True)
+    return err, rel
 
 
 def close_rel(label, k, p, tol):
@@ -1380,8 +1476,8 @@ def casci_phases(t_start, card, counters, per_point_64):
     check(abs(a_sj - sref["acceptance"]) <= 0.05,
           f"multi-Slater-Jastrow acceptance {a_sj} off the JAX reference's {sref['acceptance']}")
     # one block with K3 and one without, on the same streams, timed in turns
-    sblock = make_vmc_block(wf, acc, sconfigs.geometry, TSTEP, NSTEPS)
-    sst = draw_streams(gen, NSTEPS, 8, NCONF, TSTEP, "cuda", torch.float32)
+    sblock = make_vmc_block(wf, acc, sconfigs.geometry, TSTEP, CASCI_CHECK_NSTEPS)
+    sst = draw_streams(gen, CASCI_CHECK_NSTEPS, 8, NCONF, TSTEP, "cuda", torch.float32)
     sout = {}
 
     def plain_block():
@@ -1393,7 +1489,7 @@ def casci_phases(t_start, card, counters, per_point_64):
     reset_counts()
     stk, stp, stimes = timed_in_turns(sfns, lambda name, fn: sout.__setitem__(name, fn()),
                                       order=("plain", "kernel"))
-    check(read_counts() == {**{k: 0 for k in counters}, "value_mo": NSTEPS},
+    check(read_counts() == {**{k: 0 for k in counters}, "value_mo": CASCI_CHECK_NSTEPS},
           f"the multi-Slater-Jastrow blocks' launches: {read_counts()} (the plain one must "
           "launch none)")
     (kp, _, kavg), (pp, _, pavg) = sout["kernel"], sout["plain"]
@@ -1403,15 +1499,16 @@ def casci_phases(t_start, card, counters, per_point_64):
     rel = {k: abs(float(kavg[k]) - float(pavg[k])) / abs(float(pavg[k]))
            for k in kavg if k.startswith("energy") and k != "energyii"}
     check(all(r <= 1e-5 for r in rel.values()), f"K3 against plain block energies: {rel}")
-    print(f"phase 15: {NSTEPS}-step multi-Slater-Jastrow block with K3 {stk:.4f} s "
-          f"({NCONF * NSTEPS / stk:.1f} walker-steps/s), plain orbitals {stp:.4f} s "
-          f"({NCONF * NSTEPS / stp:.1f} walker-steps/s); positions and acceptance identical, "
+    print(f"phase 15: {CASCI_CHECK_NSTEPS}-step multi-Slater-Jastrow block with K3 {stk:.4f} s "
+          f"({NCONF * CASCI_CHECK_NSTEPS / stk:.1f} walker-steps/s), plain orbitals {stp:.4f} s "
+          f"({NCONF * CASCI_CHECK_NSTEPS / stp:.1f} walker-steps/s); positions and acceptance "
+          "identical, "
           f"energies' relative differences {json.dumps(rel)}", flush=True)
     tblock = make_vmc_block(wf, acc, sconfigs.geometry, TSTEP, CASCI_TRACE_NSTEPS)
     ours_sj = report_trace(
         "phase 15", f"{CASCI_TRACE_NSTEPS}-step multi-Slater-Jastrow VMC block",
         CASCI_TRACE_NSTEPS, traced(lambda: tblock(params, sconfigs.positions, sconfigs.wrap, gen)),
-        stk * CASCI_TRACE_NSTEPS / NSTEPS)
+        stk * CASCI_TRACE_NSTEPS / CASCI_CHECK_NSTEPS)
     # the pieces of a step, each alone (CUDA events, host work included)
     spos, swrap = sconfigs.positions, sconfigs.wrap
     sstate = wf.recompute(params, spos)
@@ -1425,6 +1522,7 @@ def casci_phases(t_start, card, counters, per_point_64):
         "coulomb_ms": cuda_ms(lambda: acc["energy"].coulomb.energy(spos), 3),
         "recompute_ms": cuda_ms(lambda: wf.recompute(params, spos), 3)}
     print(f"phase 15: pieces of a step alone, ms: {json.dumps(pieces)}", flush=True)
+    per_walker_ecp("phase 15", wf, params, sstate, spos, sst["rot"][0], ecp)
 
     print(f"phase 16 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 16: multi-Slater-Jastrow DMC with T-moves, from phase 15's walkers
@@ -2064,6 +2162,7 @@ def config3_phases(t_start, card, counters, opt):
         "j3_recompute_ms": cuda_ms(lambda: j3.recompute(pj3, cpos), 3)}
     print(f"phase 21: pieces of a step alone (CUDA events, host work included), ms: "
           f"{json.dumps(pieces)}; {card}", flush=True)
+    per_walker_ecp("phase 21", wf, params, cstate, cpos, cst["rot"][0], ecp)
     t21 = time.perf_counter() - t21
 
     print(f"phase 22 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2124,6 +2223,345 @@ def config3_phases(t_start, card, counters, opt):
     return {"j3_opt_per_iteration": sum(n["value_mo"] for _, _, n in its) // nit,
             "j3_opt_vmc": vlaunches["value_mo"], "config3_vmc": c3launches["value_mo"],
             "config3_dmc": dlaunches["value_mo"], "config3_trace": ours_c3}
+
+
+# --- phases 23-26: BASELINE config 5, the general twist and the two-twist average --
+
+def twist_k3(dtype, reps=50):
+    """Phase 23's kernel checks on the general twist (diamond_twist_setup,
+    500 walkers): K3's pair launch over [Re R | Im R] (489 AOs x 128
+    columns) against its plain version at the ECP chunk's points (21
+    electrons x 500 walkers x 24 selected points) and at the T-move
+    quadrature's (one electron's 96 points per walker), as the pair
+    columns and as the complex MO values the path reads; then the
+    per-walker ECP energies (before the mean) with K3 against plain orbitals
+    on one set of rotations and selection uniforms. float64 to 1e-9,
+    float32 to 1e-4 of each entry plus the largest entry's magnitude. In
+    float32 also the device time of one launch (CUDA events over `reps`
+    launches of the C entry point), the wrapper's, the plain version's and
+    the bound (`value_mo_bound`)."""
+    from pyqmc_tpu_torch.entry import diamond_twist_setup
+    from pyqmc_tpu_torch.method.vmc import draw_streams
+    from pyqmc_tpu_torch.models.orbitals import _pair, plain_orbitals
+    from pyqmc_tpu_torch.observables.ecp import systematic_downselect
+    from pyqmc_tpu_torch.ops import _build
+
+    sup, wf, params, configs, acc = diamond_twist_setup(DIAMOND_NCONF, device="cuda", dtype=dtype,
+                                                        seed=41)
+    params = randomize_jastrow(params, 42)
+    pos = configs.positions
+    nelec = pos.shape[1]
+    orb = wf.wfs[0].orbitals
+    check(not orb.real_mode and params["wf0"]["mo_coeff_alpha"][0].is_complex(),
+          "diamond_twist_setup's orbitals are not in the complex mode")
+    ecp = acc["energy"].ecp_acc
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    st = draw_streams(gen, 1, nelec, DIAMOND_NCONF, TSTEP, "cuda", dtype, downselect=True)
+    rot, u = st["rot"][0], st["u_sel"][0]
+    k3 = 262144 // (DIAMOND_NCONF * ecp.nselect)
+    aux, T = ecp.quadrature_geometry(pos[:, :k3].transpose(0, 1), rot[:k3])
+    idx, _ = systematic_downselect(T, ecp.nselect, u[:k3])
+    aux = torch.gather(aux, 2, idx[..., None].expand(*idx.shape, 3)).reshape(-1, 3)
+    tq, _ = ecp.quadrature_geometry(pos[:, 0], rot[0])
+    points = {"ecp_chunk": aux, "tmove": tq.reshape(-1, 3)}
+    C = _pair(orb._folded_coeff(params["wf0"], dtype))
+    vm = orb._value_mo
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    res = {}
+    for name, X in points.items():
+        Xf, _ = orb._fold(X)
+        plain = vm.plain_t(Xf, C)
+        err = close_rel(f"{dtype} K3 pair {name} (2 norb, M)", vm.kernel_t(Xf, C), plain, tol)
+        with plain_orbitals():
+            mo_p = orb.eval(params["wf0"], X, 0)
+        mo_k = orb.eval(params["wf0"], X, 0)
+        err_mo = max(close_rel(f"{dtype} K3 {name} complex MOs, spin {s}", k, p, tol)
+                     for s, (k, p) in enumerate(zip(mo_k, mo_p)))
+        res[name] = {"points": Xf.shape[0], "columns": C.shape[1], "max_abs_err": err,
+                     "max_abs_err_complex_mo": err_mo}
+        if dtype == torch.float32:
+            out, held, largs = vm.pack(Xf, C)
+            nbytes, ops = value_mo_bound(orb._repl_spec, Xf.shape[0], C.shape[1])
+            bms, by = bound_ms(nbytes, ops)
+            dev = cuda_ms(lambda: _build.launch("pq_value_mo", torch.float32, *largs), reps)
+            res[name].update({
+                "device_ms": dev, "wrapper_ms": cuda_ms(lambda: vm.kernel_t(Xf, C), reps),
+                "plain_ms": cuda_ms(lambda: vm.plain_t(Xf, C), 5), "bytes": nbytes,
+                "operations": ops, "bound_ms": bms, "bound_by": by, "bound_share": bms / dev})
+            del held
+    err, rel = per_walker_ecp(f"phase 23 {dtype}", wf, params, wf.recompute(params, pos), pos, rot,
+                              ecp, u, tol)
+    res["ecp_per_walker"] = {"max_abs_err": err, "max_rel_err": rel}
+    return res
+
+
+def twist_phases(t_start, card, counters, gamma_configs):
+    """Phases 23-26, BASELINE config 5: the kernels on the general twist and
+    the complex wavefunction's contracts, general-twist VMC and DMC with
+    T-moves, and the two-twist average. `gamma_configs` phase 9's final
+    walkers (the TRIM supercell VMC), from which phase 24 and the average's
+    TRIM twist start. Returns the launch counts and numbers the kernels'
+    line carries."""
+    from pyqmc_tpu_torch.configs import Configs
+    from pyqmc_tpu_torch.entry import diamond_twist_average_setup, diamond_twist_setup
+    from pyqmc_tpu_torch.method.dmc import rundmc
+    from pyqmc_tpu_torch.method.twist_average import twist_average_vmc
+    from pyqmc_tpu_torch.method.vmc import draw_streams, make_vmc_block, vmc
+    from pyqmc_tpu_torch.models import testwf
+    from pyqmc_tpu_torch.observables.energy import kinetic_energy
+    from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep, sweep_plain
+
+    none = {k: 0 for k in counters}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    def copy_configs(c):
+        return Configs.create(c.positions.clone(), c.geometry, wrap=c.wrap.clone())
+
+    print(f"phase 23 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t23 = time.perf_counter()
+    # phase 23: K3's pair launch and the per-walker ECP energies on the general twist
+    k64 = twist_k3(torch.float64)
+    print("phase 23 float64: " + json.dumps(k64), flush=True)
+    k32 = twist_k3(torch.float32)
+    print(f"phase 23 float32, {card}: " + json.dumps(k32), flush=True)
+    # the complex wavefunction's contracts on the card, float64, at 64 of
+    # phase 9's equilibrated walkers: at initial_guess's walkers (electrons
+    # piled near the nuclei, |lap psi / psi| ~ 100) the finite-difference
+    # laplacian of testwf (step 1e-4) is roundoff-bound, its error growing as
+    # the step shrinks, and crossed the JAX package's 1e-4 on the card
+    _, cwf, cparams, cconf, _ = diamond_twist_setup(WF_CHECK_NCONF, device="cuda",
+                                                    dtype=torch.float64, seed=44)
+    cconf = Configs.create(gamma_configs.positions[:WF_CHECK_NCONF].double(), cconf.geometry,
+                           wrap=gamma_configs.wrap[:WF_CHECK_NCONF].clone())
+    cparams = randomize_jastrow(cparams, 45)
+    reset_counts()
+    t0 = time.perf_counter()
+    testwf.run_all(cwf, cparams, cconf, torch.Generator().manual_seed(46))
+    check(read_counts() == none, f"float64 run_all launched kernels: {read_counts()}")
+    print(f"phase 23: testwf.run_all on the general-twist Slater-Jastrow, {WF_CHECK_NCONF} "
+          f"walkers, float64: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    t23 = time.perf_counter() - t23
+
+    print(f"phase 24 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t24 = time.perf_counter()
+    # phase 24: general-twist VMC through the entry point, from phase 9's walkers
+    sup, wf, params, configs, acc = diamond_twist_setup(DIAMOND_NCONF, dtype=torch.float32)
+    check(configs.positions.device.type == "cuda",
+          "diamond_twist_setup's default device is not the GPU")
+    check(params["wf0"]["mo_coeff_alpha"][0].dtype == torch.complex64,
+          "the general twist's coefficients are not complex64")
+    check(build_fused_sweep(wf, configs.geometry, TSTEP) is None,
+          "a complex wavefunction passed K7's gate")
+    configs = Configs.create(gamma_configs.positions.clone(), configs.geometry,
+                             wrap=gamma_configs.wrap.clone())
+    nelec, nsel = sum(sup.nelec), acc["energy"].ecp_acc.nselect
+    per_step = {"gto_eval": -(-nelec // max(1, 16384 // DIAMOND_NCONF)),
+                "value_mo": -(-nelec // max(1, 262144 // (DIAMOND_NCONF * nsel)))}
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    inner = make_vmc_block(wf, acc, configs.geometry, TSTEP, DIAMOND_NSTEPS)
+    per_block = []
+
+    def counted_block(*args):
+        before = read_counts()
+        out = inner(*args)
+        per_block.append({k: v - before[k] for k, v in read_counts().items()})
+        return out
+
+    reset_counts()
+    t0 = time.perf_counter()
+    vblocks, vconfigs = vmc(wf, params, configs, nblocks=TWIST_NBLOCKS,
+                            nsteps_per_block=DIAMOND_NSTEPS, tstep=TSTEP, accumulators=acc,
+                            generator=gen, block_fn=counted_block)
+    torch.cuda.synchronize()
+    t_vmc = time.perf_counter() - t0
+    vlaunches = read_counts()
+    for b, n in zip(vblocks, per_block):
+        print(f"phase 24 block {b['block']}: E/cell={b['energytotal'] / DIAMOND_NCELL:.6f} "
+              f"ecp/cell={b['energyecp'] / DIAMOND_NCELL:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s launches {json.dumps(n)}", flush=True)
+        check(n == {k: DIAMOND_NSTEPS * per_step.get(k, 0) for k in counters},
+              f"kernel launches in a general-twist VMC block: {n}")
+        check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
+              f"non-finite energies in general-twist block {b['block']}")
+    kept = vblocks[TWIST_NSKIP:]
+    e_cells = np.array([b["energytotal"] / DIAMOND_NCELL for b in kept])
+    e_v, sem_v = float(np.mean(e_cells)), float(np.std(e_cells, ddof=1) / np.sqrt(len(e_cells)))
+    a_v = float(np.mean([b["acceptance"] for b in kept]))
+    vref = TWIST_VMC_REF
+    vwindow = max(5 * float(np.hypot(sem_v, vref["sem"])), 0.02)
+    step_s = float(np.mean([b["block time"] for b in kept])) / DIAMOND_NSTEPS
+    print(f"phase 24: launches {vlaunches}, E/cell(blocks {TWIST_NSKIP + 1}-{TWIST_NBLOCKS})="
+          f"{e_v:.6f} +- {sem_v:.6f} Ha, acc={a_v:.4f}; JAX CPU reference {vref['e_cell']:.6f} "
+          f"+- {vref['sem']:.6f} Ha, acc {vref['acceptance']:.4f}; window {vwindow:.6f} Ha; "
+          f"step {step_s * 1e3:.1f} ms ({DIAMOND_NCONF / step_s:.1f} walker-steps/s), "
+          f"{t_vmc:.2f} s for {TWIST_NBLOCKS} blocks; {card}", flush=True)
+    check(abs(e_v - vref["e_cell"]) <= vwindow,
+          f"general-twist E/cell {e_v} off the JAX reference {vref['e_cell']} by more than "
+          f"{vwindow}")
+    check(abs(a_v - vref["acceptance"]) <= 0.05,
+          f"general-twist acceptance {a_v} off the JAX reference's {vref['acceptance']}")
+    tblock = make_vmc_block(wf, acc, configs.geometry, TSTEP, TWIST_TRACE_NSTEPS)
+    walk = {"pos": vconfigs.positions.clone(), "wrap": vconfigs.wrap.clone()}
+
+    def trace_run():
+        walk["pos"], walk["wrap"], _ = tblock(params, walk["pos"], walk["wrap"], gen)
+
+    ours_v = report_trace("phase 24", f"{TWIST_TRACE_NSTEPS}-step general-twist VMC block",
+                          TWIST_TRACE_NSTEPS, traced(trace_run), step_s * TWIST_TRACE_NSTEPS)
+    # the pieces of a step alone, and the largest condition number of the
+    # orbital matrices along one sweep (float64 values, after every 8th move)
+    vpos, vwrap = vconfigs.positions, vconfigs.wrap
+    vstate = wf.recompute(params, vpos)
+    vst = draw_streams(gen, 1, nelec, DIAMOND_NCONF, TSTEP, "cuda", torch.float32,
+                       downselect=True)
+    swept = sweep_plain(wf, configs.geometry, TSTEP, 1.0, params, vpos, vwrap, vstate,
+                        vst["gauss"][0], vst["unif"][0])
+    conds, _ = path_conds(wf, params, vpos, swept[0], stride=8)
+    ecp = acc["energy"].ecp_acc
+    pieces = {
+        "vmc_sweep_ms": cuda_ms(lambda: sweep_plain(wf, configs.geometry, TSTEP, 1.0, params, vpos,
+                                                    vwrap, vstate, vst["gauss"][0],
+                                                    vst["unif"][0]), 1),
+        "kinetic_ms": cuda_ms(lambda: kinetic_energy(wf, params, vstate, vpos), 3),
+        "ecp_ms": cuda_ms(lambda: ecp(wf, params, vstate, vpos, vst["rot"][0], vst["u_sel"][0]),
+                          3),
+        "ewald_ms": cuda_ms(lambda: acc["energy"].coulomb.energy(vpos), 3),
+        "recompute_ms": cuda_ms(lambda: wf.recompute(params, vpos), 3)}
+    cmax = {k: float(torch.max(v)) for k, v in conds.items()}
+    print(f"phase 24: pieces of a step alone (CUDA events, host work included), ms: "
+          f"{json.dumps(pieces)}; the largest condition number of the orbital matrices along "
+          f"one sweep {json.dumps(cmax)}; {card}", flush=True)
+    t24 = time.perf_counter() - t24
+
+    print(f"phase 25 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t25 = time.perf_counter()
+    # phase 25: general-twist DMC with T-moves, from phase 24's walkers
+    gen = torch.Generator(device="cuda").manual_seed(48)
+    reset_counts()
+    t0 = time.perf_counter()
+    dblocks, dconfigs, dweights = rundmc(
+        wf, params, copy_configs(vconfigs), nblocks=TWIST_DMC_NBLOCKS,
+        nsteps_per_block=DMC_NSTEPS, tstep=DMC_TSTEP, energy_acc=acc["energy"], generator=gen,
+        warmup_vmc_blocks=TWIST_DMC_WARMUP)
+    torch.cuda.synchronize()
+    t_dmc = time.perf_counter() - t0
+    dlaunches = read_counts()
+    for b in dblocks:
+        print(f"phase 25 block {b['block']}: E/cell={b['energytotal'] / DIAMOND_NCELL:.6f} "
+              f"ecp/cell={b['energyecp'] / DIAMOND_NCELL:.6f} w={b['weight']:.5f} "
+              f"e_trial/cell={b['e_trial'] / DIAMOND_NCELL:.6f} acc={b['acceptance']:.4f} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    # per energy 2 K6 and 4 K3; per T-move sweep one K3 per electron; no sweep kernel
+    nwarm = TWIST_DMC_WARMUP * 10
+    dblock = {"gto_eval": (DMC_NSTEPS + 1) * per_step["gto_eval"],
+              "value_mo": (DMC_NSTEPS + 1) * per_step["value_mo"] + DMC_NSTEPS * nelec}
+    dexpect = {**none,
+               "gto_eval": (nwarm + 1) * per_step["gto_eval"]
+               + TWIST_DMC_NBLOCKS * dblock["gto_eval"],
+               "value_mo": (nwarm + 1) * per_step["value_mo"]
+               + TWIST_DMC_NBLOCKS * dblock["value_mo"]}
+    check(dlaunches == dexpect,
+          f"kernel launches of general-twist DMC: {dlaunches}, expected {dexpect}")
+    e_dwarm_total = 2 * dblocks[0]["e_est"] - dblocks[0]["energytotal"]
+    w_pred = predicted_weights(dblocks, e_dwarm_total, DMC_TSTEP, DMC_NSTEPS)
+    for b, wp in zip(dblocks, w_pred):
+        check(all(np.isfinite(v) for v in b.values()),
+              f"non-finite value in general-twist DMC block {b}")
+        check(0.5 < b["weight"] / wp < 2.0,
+              f"general-twist block {b['block']} mean weight {b['weight']} not within a factor 2 "
+              f"of the {wp} that its e_trial and energy predict")
+        check(b["acceptance"] > 0.9, f"general-twist DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(dweights))) and bool(torch.all(dweights > 0)),
+          "final general-twist weights are not finite and positive")
+    d_cells = np.array([b["energytotal"] / DIAMOND_NCELL for b in dblocks[-TWIST_DMC_NLAST:]])
+    e_d = float(np.mean(d_cells))
+    sem_d = float(np.std(d_cells, ddof=1) / np.sqrt(len(d_cells)))
+    e_dwarm = e_dwarm_total / DIAMOND_NCELL
+    dref = TWIST_DMC_REF
+    dwindow = max(5 * float(np.hypot(sem_d, dref["sem"])), 0.02)
+    dstep_s = float(np.mean([b["block time"] for b in dblocks])) / DMC_NSTEPS
+    print(f"phase 25: launches {dlaunches} ({json.dumps(dblock)} per block), E/cell(last "
+          f"{TWIST_DMC_NLAST} blocks)={e_d:.6f} +- {sem_d:.6f} Ha, warm-up VMC E/cell="
+          f"{e_dwarm:.6f} Ha, block weights {[round(b['weight'], 4) for b in dblocks]}, predicted "
+          f"{[round(w, 4) for w in w_pred]}; JAX CPU reference {dref['e_cell']:.6f} +- "
+          f"{dref['sem']:.6f} Ha (warm-up VMC {dref['e_vmc_cell']:.6f}, block weights "
+          f"{[round(w, 4) for w in dref['weights']]}); window {dwindow:.6f} Ha; step "
+          f"{dstep_s * 1e3:.1f} ms ({DIAMOND_NCONF / dstep_s:.1f} walker-steps/s), {t_dmc:.2f} s "
+          f"for {TWIST_DMC_WARMUP} warm-up + {TWIST_DMC_NBLOCKS} DMC blocks; {card}", flush=True)
+    check(abs(e_d - dref["e_cell"]) <= dwindow,
+          f"general-twist DMC E/cell {e_d} off the JAX reference {dref['e_cell']} by more than "
+          f"{dwindow}")
+    check(e_d < e_dwarm + 0.02,
+          f"general-twist DMC E/cell {e_d} above the warm-up VMC energy {e_dwarm} by more than "
+          "0.02 Ha")
+    t25 = time.perf_counter() - t25
+
+    print(f"phase 26 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t26 = time.perf_counter()
+    # phase 26: the two-twist average, the TRIM twist from phase 9's walkers
+    # and the general one from phase 24's
+    _, args = diamond_twist_average_setup(DIAMOND_NCONF, dtype=torch.float32)
+    starts, marks = [gamma_configs, vconfigs], []
+
+    def configs_factory(ti):
+        marks.append(read_counts())
+        return copy_configs(starts[ti])
+
+    args["configs_factory"] = configs_factory
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    reset_counts()
+    t0 = time.perf_counter()
+    records, avg = twist_average_vmc(**args, generator=gen, nblocks=TWIST_AVG_NBLOCKS,
+                                     nsteps_per_block=DIAMOND_NSTEPS, tstep=TSTEP)
+    torch.cuda.synchronize()
+    t_avg = time.perf_counter() - t0
+    marks.append(read_counts())
+    check(len(records) == 2 and [r["real_mode"] for r in records] == [True, False],
+          f"the union mesh gave twists {[(r['twist'], r['real_mode']) for r in records]}")
+    alaunches = [{k: marks[i + 1][k] - marks[i][k] for k in counters} for i in range(2)]
+    nstep = TWIST_AVG_NBLOCKS * DIAMOND_NSTEPS
+    aexpect = [{**none, "pbc_sweep": nstep, **{k: nstep * v for k, v in per_step.items()}},
+               {**none, **{k: nstep * v for k, v in per_step.items()}}]
+    check(alaunches == aexpect,
+          f"kernel launches per twist: {alaunches}, expected {aexpect} (K7 on the TRIM twist "
+          "only)")
+    warm = max(1, TWIST_AVG_NBLOCKS // 4)
+    aref = TWIST_AVG_REF
+    per_twist = []
+    for r, ref in zip(records, aref["twists"]):
+        e = np.array([b["energytotal"] / DIAMOND_NCELL for b in r["data"][warm:]])
+        m, s = float(np.mean(e)), float(np.std(e, ddof=1) / np.sqrt(len(e)))
+        window = max(5 * float(np.hypot(s, ref["sem"])), 0.02)
+        per_twist.append({"twist": [round(float(x), 6) for x in r["twist"]],
+                          "real_mode": r["real_mode"], "e_cell": m, "sem": s,
+                          "reference": ref["e_cell"], "reference_sem": ref["sem"],
+                          "window": window,
+                          "acceptance": float(np.mean([b["acceptance"] for b in r["data"][warm:]])),
+                          "block_time_s": [round(b["block time"], 4) for b in r["data"]]})
+        check(all(np.isfinite(b["energytotal"]) for b in r["data"]),
+              f"non-finite energies at twist {r['twist']}")
+        check(abs(m - ref["e_cell"]) <= window,
+              f"twist {r['twist']} E/cell {m} off its JAX reference {ref['e_cell']} by more than "
+              f"{window}")
+    e_avg = float(avg["energytotal"]) / DIAMOND_NCELL
+    e_mean = float(np.mean([t["e_cell"] for t in per_twist]))
+    check(abs(e_avg - e_mean) <= 1e-9 * abs(e_mean),
+          f"the reported average {e_avg} is not the mean {e_mean} of the twists")
+    print(f"phase 26: two twists, launches {json.dumps(alaunches)}; per twist "
+          f"{json.dumps(per_twist)}; average E/cell {e_avg:.6f} Ha (JAX CPU reference "
+          f"{aref['e_cell_average']:.6f} +- {aref['e_cell_average_sem']:.6f}); {t_avg:.2f} s for "
+          f"{TWIST_AVG_NBLOCKS} blocks per twist; {card}", flush=True)
+    t26 = time.perf_counter() - t26
+    print(f"phases 23-26: {t23:.1f} + {t24:.1f} + {t25:.1f} + {t26:.1f} = "
+          f"{t23 + t24 + t25 + t26:.1f} s", flush=True)
+    return {"k64": k64, "k32": k32, "vmc": vlaunches, "dmc": dlaunches, "average": alaunches,
+            "vmc_trace": ours_v}
 
 
 def main():
@@ -2377,8 +2815,9 @@ def main():
 
     print(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 10: a kernel and a plain periodic block in turns, then one traced
-    pfns = {"kernel": inner,
-            "plain": make_vmc_block(wf, acc, configs.geometry, TSTEP, DIAMOND_NSTEPS, fused=False)}
+    pfns = {"kernel": make_vmc_block(wf, acc, configs.geometry, TSTEP, PBC_TIMED_NSTEPS),
+            "plain": make_vmc_block(wf, acc, configs.geometry, TSTEP, PBC_TIMED_NSTEPS,
+                                    fused=False)}
     walk = {"pos": pconfigs.positions, "wrap": pconfigs.wrap}
 
     def pbc_block(name, fn):
@@ -2387,14 +2826,15 @@ def main():
 
     reset_counts()
     ptk, ptp, ptimes = timed_in_turns(pfns, pbc_block)
-    check(read_counts() == {k: 2 * DIAMOND_NSTEPS * per_step.get(k, 0) for k in counters},
+    check(read_counts() == {k: 2 * PBC_TIMED_NSTEPS * per_step.get(k, 0) for k in counters},
           f"the periodic blocks' launches: {read_counts()} (the plain blocks must launch none)")
-    print(f"phase 10: {DIAMOND_NSTEPS}-step periodic block with kernels {ptk:.4f} s "
-          f"({DIAMOND_NCONF * DIAMOND_NSTEPS / ptk:.1f} walker-steps/s), plain {ptp:.4f} s "
-          f"({DIAMOND_NCONF * DIAMOND_NSTEPS / ptp:.1f} walker-steps/s); runs {json.dumps(ptimes)}",
-          flush=True)
+    print(f"phase 10: {PBC_TIMED_NSTEPS}-step periodic block with kernels {ptk:.4f} s "
+          f"({DIAMOND_NCONF * PBC_TIMED_NSTEPS / ptk:.1f} walker-steps/s), plain {ptp:.4f} s "
+          f"({DIAMOND_NCONF * PBC_TIMED_NSTEPS / ptp:.1f} walker-steps/s); runs "
+          f"{json.dumps(ptimes)}", flush=True)
     ours_pbc = report_trace("phase 10", "kernel periodic block", DIAMOND_NSTEPS,
-                            traced(lambda: pbc_block("traced", inner)), ptk)
+                            traced(lambda: pbc_block("traced", inner)),
+                            ptk * DIAMOND_NSTEPS / PBC_TIMED_NSTEPS)
 
     print(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 11: the periodic DMC path through the entry points, default device
@@ -2478,10 +2918,10 @@ def main():
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 12: a kernel and a plain periodic DMC block in turns, then one traced
     qlast = qblocks[-1]
-    qfns = {"kernel": make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
-                                     fused=True)[0],
-            "plain": make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP, DMC_NSTEPS,
-                                    fused=False)[0]}
+    qfns = {"kernel": make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP,
+                                     PBC_TIMED_NSTEPS, fused=True)[0],
+            "plain": make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP,
+                                    PBC_TIMED_NSTEPS, fused=False)[0]}
     walk = {"pos": qconfigs.positions, "wrap": qconfigs.wrap, "w": qweights}
 
     def qdmc_block(name, fn):
@@ -2520,22 +2960,26 @@ def main():
           flush=True)
     reset_counts()
     qtk, qtp, qtimes = timed_in_turns(qfns, qdmc_block, order=("plain", "kernel"))
-    check(read_counts() == {k: per_block.get(k, 0) for k in counters},
+    n = PBC_TIMED_NSTEPS
+    timed_expect = {"pbc_dmc_sweep": n, "gto_eval": (n + 1) * per_step["gto_eval"],
+                    "value_mo": (n + 1) * per_step["value_mo"] + n * nelec}
+    check(read_counts() == {k: timed_expect.get(k, 0) for k in counters},
           f"the periodic DMC blocks' launches: {read_counts()} (the plain blocks must launch none)")
-    print(f"phase 12: {DMC_NSTEPS}-step periodic DMC block with kernels {qtk:.4f} s "
-          f"({DIAMOND_NCONF * DMC_NSTEPS / qtk:.1f} walker-steps/s), plain {qtp:.4f} s "
-          f"({DIAMOND_NCONF * DMC_NSTEPS / qtp:.1f} walker-steps/s); runs {json.dumps(qtimes)}",
+    print(f"phase 12: {n}-step periodic DMC block with kernels {qtk:.4f} s "
+          f"({DIAMOND_NCONF * n / qtk:.1f} walker-steps/s), plain {qtp:.4f} s "
+          f"({DIAMOND_NCONF * n / qtp:.1f} walker-steps/s); runs {json.dumps(qtimes)}",
           flush=True)
     qtrace = make_dmc_block(wf, acc["energy"], qconfigs.geometry, DMC_TSTEP, PBC_TRACE_NSTEPS)[0]
     ours_qdmc = report_trace("phase 12", f"{PBC_TRACE_NSTEPS}-step kernel periodic DMC block",
                              PBC_TRACE_NSTEPS, traced(lambda: qdmc_block("traced", qtrace)),
-                             qtk * PBC_TRACE_NSTEPS / DMC_NSTEPS)
+                             qtk * PBC_TRACE_NSTEPS / PBC_TIMED_NSTEPS)
 
     per_point_64 = (p32["redesigned"]["value_mo"]["device_ms"] * 1e6
                     / p32["redesigned"]["value_mo"]["points"])
     c64, c32, slaunches, mlaunches, ours_sj = casci_phases(t_start, card, counters, per_point_64)
     opt = optimization_phases(t_start, card, counters, tk / NSTEPS)
     c3 = config3_phases(t_start, card, counters, opt)
+    tw = twist_phases(t_start, card, counters, pconfigs)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -2596,6 +3040,10 @@ def main():
             "launches_periodic_dmc_path": qlaunches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+        # BASELINE config 5 (phases 24-26): the general twist runs no K7; the
+        # average's launches per twist (the TRIM one, the general one)
+        entry.update({"launches_twist_vmc": tw["vmc"][name], "launches_twist_dmc": tw["dmc"][name],
+                      "launches_twist_average": [a[name] for a in tw["average"]]})
         if name in ("pbc_sweep", "pbc_dmc_sweep"):
             entry["mode"] = "dmc" if name == "pbc_dmc_sweep" else "vmc"
             entry["device_ms"] = pbc_device_ms(ours_qdmc if name == "pbc_dmc_sweep" else ours_pbc,
@@ -2631,6 +3079,17 @@ def main():
                           "launches_config3_dmc": c3["config3_dmc"],
                           "device_ms_config3_vmc": device_ms(c3["config3_trace"],
                                                              f"{name}_kernel")})
+            # the general twist's pair launch, 128 columns (phase 23)
+            entry["device_ms_twist_vmc"] = device_ms(tw["vmc_trace"], f"{name}_kernel")
+            for shape in ("ecp_chunk", "tmove"):
+                c = tw["k32"][shape]
+                entry.update({f"twist_{shape}_{k}": c[k] for k in (
+                    "points", "columns", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
+                    "bound_by", "bound_share", "max_abs_err", "max_abs_err_complex_mo")})
+                entry[f"twist_{shape}_max_abs_err_float64"] = tw["k64"][shape]["max_abs_err"]
+            entry.update({"twist_ecp_per_walker_max_abs_err": tw["k32"]["ecp_per_walker"][
+                "max_abs_err"], "twist_ecp_per_walker_max_abs_err_float64": tw["k64"][
+                "ecp_per_walker"]["max_abs_err"]})
             for shape, c in c32.items():
                 entry.update({f"casci_{shape}_{k}": c[k] for k in (
                     "points", "columns", "device_ms", "wrapper_ms", "wrapper_rows_ms", "plain_ms",

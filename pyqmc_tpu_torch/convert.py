@@ -19,6 +19,11 @@ leaves, the same on both sides:
 
 so generate_wf(mol, mf, jastrow3=True)'s tree is {"wf0": Slater's, "wf1":
 JastrowSpin's, "wf2": {"ccoeff"}}.
+
+Complex leaves (the k-point mo_coeff lists of a general twist, complex
+molecular coefficients, a complex det_coeff) and complex state fields (a
+complex Slater's inverses and phases) become complex tensors of the
+requested precision: complex64 beside float32, complex128 beside float64.
 """
 
 from __future__ import annotations
@@ -27,12 +32,18 @@ import numpy as np
 import torch
 
 from .models.slater import SlaterState
-from .utils.dtypes import real_dtype, resolve_device
+from .utils.dtypes import complex_dtype, real_dtype, resolve_device
 
 
 def _t(x, device, dtype):
+    """x as a tensor: `dtype` (default real_dtype(device)), or its complex
+    counterpart for a complex array."""
     device = resolve_device(device)
-    return torch.tensor(np.asarray(x), dtype=dtype or real_dtype(device), device=device)
+    x = np.asarray(x)
+    dtype = dtype or real_dtype(device)
+    if np.iscomplexobj(x):
+        dtype = complex_dtype(dtype)
+    return torch.tensor(x, dtype=dtype, device=device)
 
 
 def params_from_numpy(tree, device=None, dtype=None):

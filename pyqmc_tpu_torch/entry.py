@@ -34,6 +34,24 @@ the downselected nonlocal ECP.
     sup, wf, params, configs, acc = diamond_setup(nconf=500)
     blocks, configs = vmc(wf, params, configs, nblocks=4,
                           nsteps_per_block=10, accumulators=acc)
+
+`diamond_twist_setup` (BASELINE config 5; benchmarks/c_solid_benchmark.py:
+130-135, general_twist=True): the same supercell and wavefunction at the
+general twist, the 8 k-points shifted by TWIST, KPointOrbitals(realify=
+False): complex orbitals, phases, inverses and ratios, so the sweeps are
+the plain versions; the float32 orbital values run on K3 over [Re R | Im
+R], the kinetic energy's AOs on K6.
+
+    sup, wf, params, configs, acc = diamond_twist_setup(nconf=500)
+
+`diamond_twist_average_setup`: the arguments of
+method/twist_average.twist_average_vmc over the union of the 8 TRIM
+k-points and the same 8 shifted by TWIST, which it groups into two
+supercell twists (the TRIM one in real mode on K7, the shifted one as
+diamond_twist_setup), each twist's Slater times the default Jastrow.
+
+    sup, args = diamond_twist_average_setup(nconf=500)
+    records, avg = twist_average_vmc(**args, nblocks=4, nsteps_per_block=10)
 """
 
 from __future__ import annotations
@@ -129,18 +147,74 @@ def diamond_setup(nconf, device=None, dtype=None, seed=0, path=DIAMOND_PRIMITIVE
     k-point, Slater(sup, orbitals, single(32, 32)), JastrowSpin(sup, default
     periodic basis) and EnergyAccumulator(sup). Device and dtype as in
     h2o_setup; walkers from `seed`."""
+    return _diamond(nconf, device, dtype, seed, path, twist=None)
+
+
+# the general twist of benchmarks/c_solid_benchmark.py:130, added to the
+# fixture's k-points (cartesian, 1/bohr)
+TWIST = np.array([0.023, -0.017, 0.011])
+DIAMOND_IMG_TOL = 1e-4
+
+
+def _diamond_jastrow(sup):
+    a_basis, b_basis = default_jastrow_basis(sup)
+    return JastrowSpin(sup, a_basis=a_basis, b_basis=b_basis)
+
+
+def _diamond(nconf, device, dtype, seed, path, twist):
     device = resolve_device(device)
     dtype = dtype or real_dtype(device)
     cell, data = load_cell_npz(path)
     sup = get_supercell(cell, 2 * np.eye(3, dtype=int))
     kpts = np.asarray(data["kpts"])
     blocks = [np.asarray(data["mo_coeff"][k])[:, :4] for k in range(len(kpts))]
-    orb = KPointOrbitals(cell, kpts, (blocks, blocks), img_tol=1e-4)
+    if twist is None:
+        orb = KPointOrbitals(cell, kpts, (blocks, blocks), img_tol=DIAMOND_IMG_TOL)
+    else:
+        orb = KPointOrbitals(cell, kpts + twist, (blocks, blocks), img_tol=DIAMOND_IMG_TOL,
+                             realify=False)
     norb = 4 * len(kpts)
     slater = Slater(sup, orbitals=orb, expansion=DeterminantExpansion.single(norb, norb))
-    a_basis, b_basis = default_jastrow_basis(sup)
-    wf = MultiplyWF(slater, JastrowSpin(sup, a_basis=a_basis, b_basis=b_basis))
+    wf = MultiplyWF(slater, _diamond_jastrow(sup))
     params = wf.make_params(device, dtype)
     configs = initial_guess(sup, nconf, generator=torch.Generator().manual_seed(seed),
                             device=device, dtype=dtype)
     return sup, wf, params, configs, {"energy": EnergyAccumulator(sup)}
+
+
+def diamond_twist_setup(nconf, device=None, dtype=None, seed=0, path=DIAMOND_PRIMITIVE):
+    """(supercell, wf, params, configs, accumulators) of BASELINE config 5's
+    general twist: diamond_setup's configuration with the k-points shifted
+    by TWIST and KPointOrbitals(..., realify=False, img_tol=1e-4), whose
+    mo_coeff parameters are complex (complex64 beside float32). Device,
+    dtype and walkers as in diamond_setup."""
+    return _diamond(nconf, device, dtype, seed, path, twist=TWIST)
+
+
+def diamond_twist_average_setup(nconf, device=None, dtype=None, seed=0, path=DIAMOND_PRIMITIVE):
+    """(supercell, the keyword arguments of twist_average_vmc but its
+    schedule) of the two-twist average: the union mesh of the fixture's 8
+    TRIM k-points and the same 8 shifted by TWIST, every k-point's
+    orbitals and occupations (the first 4 occupied), each twist's Slater
+    (img_tol 1e-4) times the default periodic Jastrow, a fresh
+    EnergyAccumulator per twist, and walkers from `seed` + the twist's
+    index."""
+    device = resolve_device(device)
+    dtype = dtype or real_dtype(device)
+    cell, data = load_cell_npz(path)
+    sup = get_supercell(cell, 2 * np.eye(3, dtype=int))
+    kpts = np.asarray(data["kpts"])
+    nk = len(kpts)
+    mesh = np.concatenate([kpts, kpts + TWIST])
+    coeff = [np.asarray(data["mo_coeff"][k % nk]) for k in range(2 * nk)]
+    occ = [np.asarray(data["mo_occ"][k % nk]) / 2.0 for k in range(2 * nk)]
+
+    def configs_factory(ti):
+        return initial_guess(sup, nconf, generator=torch.Generator().manual_seed(seed + ti),
+                             device=device, dtype=dtype)
+
+    return sup, {"cell": cell, "supercell": sup, "kpts": mesh, "mo_coeff": (coeff, coeff),
+                 "mo_occ": (occ, occ), "configs_factory": configs_factory,
+                 "accumulators_factory": lambda: {"energy": EnergyAccumulator(sup)},
+                 "wf_factory": lambda slater: MultiplyWF(slater, _diamond_jastrow(sup)),
+                 "orbital_kws": {"img_tol": DIAMOND_IMG_TOL}, "device": device, "dtype": dtype}

@@ -21,6 +21,11 @@ per-determinant sum (`_ratio_terms`) in another order, so the ECP's
 (walker, point) ratios never carry a determinant axis. The determinant of
 the first n orbitals keeps its own paths (v is then a column of the one
 inverse), those of the single-determinant port.
+
+Complex orbitals (KPointOrbitals at a general twist, complex molecular
+coefficients) or a complex det_coeff make the wavefunction complex: phases
+of unit modulus, complex inverses, weights and ratios (models/slater.py:18,
+:452-491 of the JAX package), and pgradient the holomorphic d log psi / dp.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 from ..ops.gto import eval_gto
 from ..ops.linalg import sherman_morrison_row, slogdet_inv
 from ..utils.constants import DeviceConstants, index_tensor
-from ..utils.dtypes import real_dtype, resolve_device
+from ..utils.dtypes import complex_dtype, real_dtype, resolve_device
 from .orbitals import MolecularOrbitals
 
 
@@ -141,6 +146,10 @@ class Slater:
         self._first_n = exp.is_first_n()
         ndet = len(exp.map_up)
         self._det_coeff0 = np.ones(ndet) if det_coeff is None else np.asarray(det_coeff)
+        # complex orbitals or coefficients: every orbital value is taken
+        # complex (_eval), so that the ratios' contractions share one dtype
+        self.is_complex = bool(getattr(self.orbitals, "is_complex", False)
+                               or np.iscomplexobj(self._det_coeff0))
         if self._det_coeff0.shape != (ndet,):
             raise ValueError(f"det_coeff has shape {self._det_coeff0.shape} for {ndet} "
                              "determinants")
@@ -166,9 +175,17 @@ class Slater:
     def make_params(self, device=None, dtype=None):
         device = resolve_device(device)
         dtype = dtype or real_dtype(device)
-        p = {"det_coeff": torch.as_tensor(self._det_coeff0, dtype=dtype, device=device)}
+        cdtype = complex_dtype(dtype) if np.iscomplexobj(self._det_coeff0) else dtype
+        p = {"det_coeff": torch.as_tensor(self._det_coeff0, dtype=cdtype, device=device)}
         p.update(self.orbitals.make_params(device, dtype))
         return p
+
+    def _eval(self, params, X, mode):
+        """The orbitals' eval, complex throughout for a complex wavefunction."""
+        out = self.orbitals.eval(params, X, mode)
+        if self.is_complex:
+            out = tuple(m if m.is_complex() else m.to(complex_dtype(m.dtype)) for m in out)
+        return out
 
     # --- helpers ---------------------------------------------------------
     def _spin_row(self, e: int):
@@ -251,7 +268,7 @@ class Slater:
 
     # --- protocol ---------------------------------------------------------
     def recompute(self, params, positions):
-        mo_up_all, mo_dn_all, gmo_up_all, gmo_dn_all = self.orbitals.eval(params, positions, 1)
+        mo_up_all, mo_dn_all, gmo_up_all, gmo_dn_all = self._eval(params, positions, 1)
         nup, ndn = self.nup, self.ndn
         mo_up = mo_up_all[:, :nup]
         mo_dn = mo_dn_all[:, nup:]
@@ -283,7 +300,7 @@ class Slater:
         """(phase, logabs) of the expansion."""
         if self._first_n:
             c = params["det_coeff"][0]
-            phase = torch.sign(c) * state.phase_up[:, 0] * state.phase_dn[:, 0]
+            phase = torch.sgn(c) * state.phase_up[:, 0] * state.phase_dn[:, 0]
             return phase, torch.log(torch.abs(c)) + state.logdet_up[:, 0] + state.logdet_dn[:, 0]
         w, denom, ref = self._weights(params, state)
         absd = torch.abs(denom)
@@ -294,13 +311,13 @@ class Slater:
 
     def testvalue(self, params, state, e, epos):
         """Psi(r_e = epos) / Psi; epos (nconf, 3) or (nconf, naux, 3)."""
-        mo_up, mo_dn = self.orbitals.eval(params, epos, 0)
+        mo_up, mo_dn = self._eval(params, epos, 0)
         return self._ratio_e(params, state, e, mo_up, mo_dn), {"mo_up": mo_up, "mo_dn": mo_dn}
 
     def testvalue_many(self, params, state, epos):
         """Ratios for moving EACH electron to epos (nconf, 3), one at a
         time: (nconf, nelec)."""
-        mo_up, mo_dn = self.orbitals.eval(params, epos, 0)
+        mo_up, mo_dn = self._eval(params, epos, 0)
         outs = []
         for s, (mo, n) in enumerate(((mo_up, self.nup), (mo_dn, self.ndn))):
             if n == 0:
@@ -323,6 +340,8 @@ class Slater:
         outs, order = [], []
         if self._first_n:
             mo_r = self.orbitals.eval_mo_t(params, aux.reshape(-1, 3)).reshape(-1, ne, nc, nq)
+            if self.is_complex and not mo_r.is_complex():
+                mo_r = mo_r.to(complex_dtype(mo_r.dtype))
             norb_up = self.orbitals.norb[0]
             for s, (inv, n, off, base) in enumerate(((state.inv_up, self.nup, 0, 0),
                                                      (state.inv_dn, self.ndn, norb_up, self.nup))):
@@ -335,7 +354,7 @@ class Slater:
                 outs.append(torch.einsum("jkcq,cjk->kcq", sel, icol))
                 order += idxs
         else:
-            mos = self.orbitals.eval(params, aux.reshape(-1, 3), 0)
+            mos = self._eval(params, aux.reshape(-1, 3), 0)
             for s, (mo, base) in enumerate(zip(mos, (0, self.nup))):
                 idxs = [i for i, e in enumerate(es) if (e < self.nup) == (s == 0)]
                 if not idxs:
@@ -353,7 +372,7 @@ class Slater:
 
     def gradient_value(self, params, state, e, epos):
         """(grad psi/psi at epos (nconf, 3), ratio (nconf,), saved)."""
-        mo_up, mo_dn, gmo_up, gmo_dn = self.orbitals.eval(params, epos, 1)
+        mo_up, mo_dn, gmo_up, gmo_dn = self._eval(params, epos, 1)
         m4u = torch.cat([mo_up[:, None, :], gmo_up], dim=1)
         m4d = torch.cat([mo_dn[:, None, :], gmo_dn], dim=1)
         r = self._ratio_e(params, state, e, m4u, m4d)  # (nconf, 4)
@@ -376,7 +395,7 @@ class Slater:
         """One orbital evaluation of both positions: (grad at epos_old,
         grad at epos_new, ratio new / old, saved at epos_new)."""
         X = torch.stack([epos_old, epos_new], dim=1)  # (nconf, 2, 3)
-        mo_up, mo_dn, gmo_up, gmo_dn = self.orbitals.eval(params, X, 1)
+        mo_up, mo_dn, gmo_up, gmo_dn = self._eval(params, X, 1)
         nconf = X.shape[0]
         s, icol = self._column(params, state, e)
         mo, gmo = (mo_up, gmo_up) if s == 0 else (mo_dn, gmo_dn)
@@ -396,7 +415,7 @@ class Slater:
 
     def gradient_laplacian(self, params, state, e, epos):
         """(grad psi/psi, lap psi/psi) at epos."""
-        mo_up, mo_dn, gmo_up, gmo_dn, lmo_up, lmo_dn = self.orbitals.eval(params, epos, 2)
+        mo_up, mo_dn, gmo_up, gmo_dn, lmo_up, lmo_dn = self._eval(params, epos, 2)
         s, icol = self._column(params, state, e)
         ratio = self._ratio(icol, mo_up if s == 0 else mo_dn)
         gratio = self._ratio(icol, gmo_up if s == 0 else gmo_dn)
@@ -407,7 +426,7 @@ class Slater:
         """gradient_laplacian of electrons es (static) at epos (nconf, k, 3):
         one orbital evaluation of all k * nconf points (K6's launch on the
         periodic path) -> (grad (nconf, k, 3), lap (nconf, k))."""
-        mo_up, mo_dn, gmo_up, gmo_dn, lmo_up, lmo_dn = self.orbitals.eval(params, epos, 2)
+        mo_up, mo_dn, gmo_up, gmo_dn, lmo_up, lmo_dn = self._eval(params, epos, 2)
         cols = self._spin_columns(params, state, es)
         ratio = self._ratio_many(cols, es, mo_up, mo_dn)
         g = self._ratio_many(cols, es, gmo_up, gmo_dn)
@@ -421,7 +440,7 @@ class Slater:
         if "gmo_up" in saved:
             mo, gmo = (saved["mo_up"], saved["gmo_up"]) if s == 0 else (saved["mo_dn"], saved["gmo_dn"])
         else:
-            mo_up, mo_dn, gmo_up, gmo_dn = self.orbitals.eval(params, epos, 1)
+            mo_up, mo_dn, gmo_up, gmo_dn = self._eval(params, epos, 1)
             mo, gmo = (mo_up, gmo_up) if s == 0 else (mo_dn, gmo_dn)
         sfx = "up" if s == 0 else "dn"
         inv = getattr(state, f"inv_{sfx}")
@@ -457,9 +476,13 @@ class Slater:
         "mo_coeff_alpha": (nconf, nao, norb_up), "mo_coeff_beta": ...}:
         the coefficients' derivatives from the expansion weights, the
         orbital coefficients' from tr(M^-1 dM) (models/slater.py:546-601).
-        For k-point orbitals (real mode) each spin's entry is a list over k
-        of (nconf, nao, nocc_k), from the Bloch-summed AOs of each k
-        (models/slater.py:_pgradient_kpoint, :501)."""
+        For k-point orbitals each spin's entry is a list over k of (nconf,
+        nao, nocc_k), from the Bloch-summed AOs of each k
+        (models/slater.py:_pgradient_kpoint, :501). For a complex
+        wavefunction the derivatives are holomorphic, d log psi / dp, as the
+        JAX package's (:505-560): d log|psi| along a real direction of a
+        complex parameter is their real part, along its imaginary direction
+        minus their imaginary part."""
         kpoint = not isinstance(self.orbitals, MolecularOrbitals)
         state = self.recompute(params, positions)
         w, denom, _ = self._weights(params, state)
@@ -468,6 +491,7 @@ class Slater:
             aos = self.orbitals.kaos(positions)  # (nconf, nelec, nk, nao)
         else:
             aos = eval_gto(self.orbitals.spec, positions, 0)[:, :, None, :]
+        aos = aos.to(state.inv_up.dtype)
         nconf = positions.shape[0]
         for s, (inv, sl, cname) in enumerate(((state.inv_up, slice(0, self.nup), "mo_coeff_alpha"),
                                               (state.inv_dn, slice(self.nup, None),

@@ -173,22 +173,20 @@ def test_gradient_laplacian(wf, params, configs, generator, delta=1e-4, tol=1e-4
     return maxerr
 
 
+def flatten_leaves(tree):
+    """Leaves of a parameter tree: dicts by sorted key, lists in order, as
+    jax.flatten_util.ravel_pytree orders them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flatten_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in flatten_leaves(v)]
+    return [tree]
+
+
 def flatten(tree):
-    """Leaves of a parameter tree (dicts by sorted key, lists in order, as
-    jax.flatten_util.ravel_pytree orders them): (flat 1-d tensor, unflatten)."""
-    leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k])
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        else:
-            leaves.append(t)
-
-    walk(tree)
+    """(flat 1-d tensor of the leaves of a parameter tree, complex if any
+    leaf is, unflatten), in flatten_leaves' order."""
+    leaves = flatten_leaves(tree)
     flat = torch.cat([x.reshape(-1) for x in leaves])
 
     def unflatten(f):
@@ -199,7 +197,9 @@ def flatten(tree):
                 return {k: build(t[k]) for k in sorted(t)}
             if isinstance(t, (list, tuple)):
                 return type(t)(build(v) for v in t)
-            return next(it).reshape(t.shape)
+            x = next(it).reshape(t.shape)
+            # cat promotes a tree with complex leaves to complex
+            return x.real if x.is_complex() and not t.is_complex() else x
 
         return build(tree)
 
@@ -218,7 +218,10 @@ def test_pgradient(wf, params, configs, generator, delta=1e-6, tol=1e-5):
     """pgradient against finite differences of log|psi| summed over the
     walkers, on 10 parameters picked by numpy's default_rng(0) (the JAX
     check's picks); for each the best of four steps is taken, as high
-    curvature near a node makes any single step unreliable."""
+    curvature near a node makes any single step unreliable. pgradient is
+    holomorphic for a complex parameter, d log psi / dp: along its real
+    direction d log|psi| is Re(g), along its imaginary direction -Im(g),
+    and both are checked."""
     pos = configs.positions
     flat_p, unflatten = flatten(params)
     flat_g, _ = flatten(_tree_sum0(wf.pgradient(params, pos)))
@@ -227,18 +230,25 @@ def test_pgradient(wf, params, configs, generator, delta=1e-6, tol=1e-5):
         p = unflatten(fp)
         return float(torch.sum(wf.value(p, wf.recompute(p, pos))[1]))
 
+    leaf_complex = np.concatenate([np.full(x.numel(), x.is_complex())
+                                   for x in flatten_leaves(params)])
     rng = np.random.default_rng(0)
     idx = rng.choice(flat_p.shape[0], size=min(10, flat_p.shape[0]), replace=False)
     maxerr = 0.0
     for i in idx:
-        best = np.inf
-        for d in (1e-4, 1e-5, 1e-6, 1e-7):
-            up, dn = flat_p.clone(), flat_p.clone()
-            up[i] += d
-            dn[i] -= d
-            fd = (total_logabs(up) - total_logabs(dn)) / (2 * d)
-            best = min(best, abs(float(flat_g[i]) - fd))
-        maxerr = max(maxerr, best)
+        g = complex(flat_g[i]) if flat_g.is_complex() else float(flat_g[i])
+        directions = [(1.0, np.real(g))]
+        if leaf_complex[i]:
+            directions.append((1j, -np.imag(g)))
+        for direction, expect in directions:
+            best = np.inf
+            for d in (1e-4, 1e-5, 1e-6, 1e-7):
+                up, dn = flat_p.clone(), flat_p.clone()
+                up[i] += direction * d
+                dn[i] -= direction * d
+                fd = (total_logabs(up) - total_logabs(dn)) / (2 * d)
+                best = min(best, abs(expect - fd))
+            maxerr = max(maxerr, best)
     assert maxerr < tol, f"pgradient FD mismatch {maxerr}"
     return maxerr
 

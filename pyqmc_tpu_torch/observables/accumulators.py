@@ -33,17 +33,26 @@ class EnergyAccumulator:
             ecp_acc = ECPAccumulator(mol)
         self.ecp_acc = ecp_acc or None
 
-    def __call__(self, wf, params, state, positions, rot=None, u_sel=None):
-        ke, grad2 = kinetic_energy(wf, params, state, positions)
+    def __call__(self, wf, params, state, positions, rot=None, u_sel=None, with_imag=False):
+        """Per-walker components, real for any wavefunction; with_imag adds
+        "total_im", the imaginary part of a complex wavefunction's local
+        energy (kinetic and ECP; zero in expectation)."""
+        ke, grad2, *ke_im = kinetic_energy(wf, params, state, positions, with_imag=with_imag)
         ee, ei, ii = self.coulomb.energy(positions)
         out = {"ke": ke, "ee": ee, "ei": ei, "ii": ii, "grad2": grad2}
+        ecp_im = 0.0
         if self.ecp_acc is not None:
             if rot is None:
                 raise ValueError("the ECP energy needs the step's quadrature rotations")
-            out["ecp"] = self.ecp_acc(wf, params, state, positions, rot, u_sel)
+            out["ecp"] = self.ecp_acc(wf, params, state, positions, rot, u_sel,
+                                      with_imag=with_imag)
+            if with_imag:
+                out["ecp"], ecp_im = out["ecp"]
         else:
             out["ecp"] = torch.zeros_like(ke)
         out["total"] = ke + ee + ei + ii + out["ecp"]
+        if with_imag:
+            out["total_im"] = ke_im[0] + ecp_im
         return out
 
     def avg(self, wf, params, state, positions, rot=None, u_sel=None):

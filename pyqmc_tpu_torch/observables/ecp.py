@@ -372,10 +372,13 @@ class ECPAccumulator:
         """T-move quadrature of electron e (Casula's size-consistent form):
         (aux (c, nq, 3), w (c, nq), r (c, nq)), the points, the signed
         matrix-element weights w_q = -tau T_q and the wavefunction ratios
-        r_q, on the electron's rotations rot_e (c, 3, 3). Forward
+        r_q (their real parts for a complex wavefunction), on the electron's
+        rotations rot_e (c, 3, 3). Forward
         amplitudes are max(0, w_q r_q); after a move to point m the
         backward ones are max(0, w_q r_q / r_m)."""
         aux, T, ratio = self._electron_quadrature(wf, params, state, positions, e, rot_e)
+        if ratio.is_complex():  # observables/ecp.py:598-611
+            ratio = ratio.real
         return aux, -tau * T, ratio
 
     def local(self, positions):
@@ -401,8 +404,21 @@ class ECPAccumulator:
             self._nonlocal_cache[id(wf)] = fn
         return self._nonlocal_cache[id(wf)]
 
-    def __call__(self, wf, params, state, positions, rot, u_sel=None):
+    def __call__(self, wf, params, state, positions, rot, u_sel=None, with_imag=False):
+        """Per-walker ECP energy, real for any wavefunction (a complex one's
+        ratios enter as Re); with_imag: (that, the imaginary part of the
+        nonlocal energy), as the JAX package's with_imag."""
         local = self.local(positions)
         if not self.nl_atoms:
-            return local
-        return local + self.nonlocal_fn(wf)(params, positions, state, rot, u_sel)
+            return (local, torch.zeros_like(local)) if with_imag else local
+        fn = self.nonlocal_fn(wf)
+        if not with_imag:
+            return local + fn(params, positions, state, rot, u_sel)
+        from ..ops.ecp_energy import FusedECPEnergy, ecp_nonlocal_plain
+
+        if isinstance(fn, FusedECPEnergy):  # inside K2's gate: a real wavefunction
+            nl = fn(params, positions, state, rot, u_sel)
+            return local + nl, torch.zeros_like(nl)
+        nl, nl_im = ecp_nonlocal_plain(self, wf, params, positions, state, rot, u_sel,
+                                       with_imag=True)
+        return local + nl, nl_im

@@ -10,8 +10,11 @@ import torch
 from ..utils.constants import DeviceConstants
 
 
-def kinetic_energy(wf, params, state, positions, echunk="auto"):
-    """(-1/2 sum_e lap_e psi / psi, sum_e |grad_e psi / psi|^2), each (nconf,).
+def kinetic_energy(wf, params, state, positions, echunk="auto", with_imag=False):
+    """(-1/2 sum_e Re(lap_e psi / psi), sum_e |grad_e psi / psi|^2), each
+    (nconf,); with_imag adds -1/2 sum_e Im(lap_e psi / psi), the imaginary
+    part of a complex wavefunction's local kinetic energy (zero in
+    expectation; zeros for a real one).
 
     echunk electrons per evaluation; "auto" bounds a chunk at 16384
     (electron, walker) points (observables/energy.py:14-90)."""
@@ -20,13 +23,21 @@ def kinetic_energy(wf, params, state, positions, echunk="auto"):
     nconf, nelec = positions.shape[:2]
     if echunk == "auto":
         echunk = max(1, 16384 // max(nconf, 1))
-    lap = grad2 = 0.0
+    lap = grad2 = lap_im = 0.0
     for c0 in range(0, nelec, echunk):
         es = tuple(range(c0, min(c0 + echunk, nelec)))
         g, l = default_gradient_laplacian_many(wf, params, state, es, positions[:, c0:c0 + len(es)])
+        if l.is_complex():
+            lap_im = lap_im + torch.sum(l.imag, dim=1)
+            l = l.real
+            g = torch.abs(g)
         lap = lap + torch.sum(l, dim=1)
         grad2 = grad2 + torch.sum(g * g, dim=(1, 2))
-    return -0.5 * lap, grad2
+    if not with_imag:
+        return -0.5 * lap, grad2
+    if not torch.is_tensor(lap_im):
+        lap_im = torch.zeros_like(lap)
+    return -0.5 * lap, grad2, -0.5 * lap_im
 
 
 class OpenCoulomb:

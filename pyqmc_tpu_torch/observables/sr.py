@@ -55,8 +55,9 @@ class StochasticReconfiguration:
         R, I = self.transform.serialize_gradients_pair(wf.pgradient(params, positions))
         if I is not None:
             raise NotImplementedError(
-                "SR with complex parameter gradients needs the complex local energy of "
-                "complex KPointOrbitals (ROADMAP queue 1 item 7), which is not ported")
+                "SR with complex parameter gradients (the complex channel of the local "
+                "energy and of the parameter derivatives, as in test_complex_linemin.py) is "
+                "not ported (ROADMAP queue 1 item 9)")
         return {"total": d["total"], "grad2": d["grad2"], "dpR": R}
 
     def avg(self, wf, params, state, positions, rot=None, u_sel=None):

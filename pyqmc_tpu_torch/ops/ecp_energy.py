@@ -55,11 +55,13 @@ def block_shared(tables, itemsize):
     return walkers, base + walkers * per_walker
 
 
-def ecp_nonlocal_plain(ecp_acc, wf, params, positions, state, rot, u_sel=None):
-    """Nonlocal ECP energy (nconf,) = sum_e sum_q T_q ratio_q, with rot
+def ecp_nonlocal_plain(ecp_acc, wf, params, positions, state, rot, u_sel=None, with_imag=False):
+    """Nonlocal ECP energy (nconf,) = sum_e sum_q T_q Re(ratio_q), with rot
     (nelec, nconf, 3, 3) the per-electron quadrature rotations and u_sel
     (nelec, nconf) the downselection uniforms (needed when the accumulator
-    downselects)."""
+    downselects). with_imag: (that, sum_e sum_q T_q Im(ratio_q)), the
+    imaginary part of a complex wavefunction's nonlocal energy
+    (observables/ecp.py:690-705; zeros for a real one)."""
     from ..models.multiply import default_testvalue_aux_all
     from ..observables.ecp import systematic_downselect
 
@@ -73,6 +75,7 @@ def ecp_nonlocal_plain(ecp_acc, wf, params, positions, state, rot, u_sel=None):
         chunk = max(1, 262144 // max(nconf * npts, 1))
     chunk = nelec if chunk is None else min(int(chunk), nelec)
     out = torch.zeros(nconf, dtype=positions.dtype, device=positions.device)
+    out_im = None
     for c0 in range(0, nelec, chunk):
         es = tuple(range(c0, min(c0 + chunk, nelec)))
         epos = positions[:, c0:c0 + len(es)].transpose(0, 1)  # (k, nconf, 3)
@@ -83,8 +86,14 @@ def ecp_nonlocal_plain(ecp_acc, wf, params, positions, state, rot, u_sel=None):
             aux = torch.gather(aux, 2, idx[..., None].expand(*idx.shape, 3))
         ratio = default_testvalue_aux_all(wf, params, state, aux,
                                           es=None if len(es) == nelec else es)
+        if ratio.is_complex():
+            im = torch.sum(torch.sum(T * ratio.imag, dim=2), dim=0)
+            out_im = im if out_im is None else out_im + im
+            ratio = ratio.real
         out = out + torch.sum(torch.sum(T * ratio, dim=2), dim=0)
-    return out
+    if not with_imag:
+        return out
+    return out, (torch.zeros_like(out) if out_im is None else out_im)
 
 
 class FusedECPEnergy:

@@ -10,12 +10,13 @@ import torch
 
 
 def slogdet_inv(a):
-    """(phase, logabsdet, inverse) of batched square matrices a (..., n, n)."""
+    """(phase, logabsdet, inverse) of batched square matrices a (..., n, n),
+    real or complex: the phase is +-1 or of unit modulus, log|det| real."""
     n = a.shape[-1]
     if n == 0:
         shape = a.shape[:-2]
         return (torch.ones(shape, dtype=a.dtype, device=a.device),
-                torch.zeros(shape, dtype=a.dtype, device=a.device), torch.zeros_like(a))
+                torch.zeros(shape, dtype=a.abs().dtype, device=a.device), torch.zeros_like(a))
     phase, logabs = torch.linalg.slogdet(a)
     # inv_ex: no error check, so no device-to-host sync on the GPU
     return phase, logabs, torch.linalg.inv_ex(a)[0]

@@ -54,14 +54,17 @@ class KernelUnsupported(ValueError):
 
 
 def limdrift(g, cutoff=1.0):
-    """Cap the drift vector norm (reference mc.py:76-89)."""
+    """Cap the drift vector norm (reference mc.py:76-89); a complex
+    wavefunction drifts along Re(g)."""
+    g = g.real
     tot = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
     return torch.where(tot > cutoff, g * (cutoff / tot), g)
 
 
 def limdrift_umrigar(g, tau):
     """Umrigar et al. drift limiting (method/dmc.py:32-39):
-    v -> v * (sqrt(1 + 2 v^2 tau) - 1) / (v^2 tau)."""
+    v -> v * (sqrt(1 + 2 v^2 tau) - 1) / (v^2 tau), on Re(g)."""
+    g = g.real
     v2 = torch.sum(g * g, dim=-1, keepdim=True)
     taueff = torch.clamp(v2 * tau, min=1e-12)
     return g * ((torch.sqrt(1.0 + 2.0 * taueff) - 1.0) / taueff)
@@ -101,8 +104,9 @@ def sweep_plain(wf, geometry, tstep, drift_cutoff, params, positions, wrap, stat
         backward = torch.sum((gauss + tstep * (drift_old + drift_new)) ** 2, dim=-1)
         t_prob = torch.exp((forward - backward) / (2.0 * tstep))
         accept_prob = torch.abs(ratio) ** 2 * t_prob
-        if dmc:
-            # fixed node: a move across the node is rejected
+        if dmc and not ratio.is_complex():
+            # fixed node: a move across the node is rejected (a complex
+            # wavefunction has no node to cross: method/dmc.py:178-182)
             accept_prob = torch.where(ratio <= 0, torch.zeros_like(accept_prob), accept_prob)
         accept = accept_prob > unif_step[e]
         state = wf.updateinternals(params, state, e, newpos, accept, saved)
@@ -121,8 +125,11 @@ def sweep_plain(wf, geometry, tstep, drift_cutoff, params, positions, wrap, stat
 def _match_sj(wf, geometry):
     """The JAX package's gate (move_pallas._match_sj): open boundary,
     MultiplyWF(single-determinant molecular Slater with occ = the first n
-    orbitals, JastrowSpin) or either factor alone, both spins non-empty.
-    Returns (slater, jastrow, sl_idx, j_idx) or None."""
+    orbitals, JastrowSpin) or either factor alone, both spins non-empty; the
+    orbitals real, since the kernels are (complex ones run plain, as the
+    JAX package's ECP energy takes K2 for real wavefunctions only,
+    observables/ecp.py:645). Returns (slater, jastrow, sl_idx, j_idx) or
+    None."""
     from ..models.jastrow import JastrowSpin
     from ..models.multiply import MultiplyWF
     from ..models.orbitals import MolecularOrbitals
@@ -142,7 +149,7 @@ def _match_sj(wf, geometry):
             return None
     if slater is None:
         return None
-    if not isinstance(slater.orbitals, MolecularOrbitals):
+    if not isinstance(slater.orbitals, MolecularOrbitals) or slater.orbitals.is_complex:
         return None
     exp = slater.expansion
     nup, ndn = slater.nup, slater.ndn

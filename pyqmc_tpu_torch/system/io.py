@@ -100,16 +100,18 @@ def basis_from_pyscf_json(text: str):
 
 
 def load_cell_npz(path: str = DIAMOND_PRIMITIVE):
-    """(Cell, {"kpts" (nk, 3), "mo_coeff" (nk, nao, nmo) complex, "e_tot"})
-    from a periodic `.npz` (keys basis_json, ecp_json, atom_symbols,
-    atom_coords, lattice, spin, kpts, mo_coeff, e_tot)."""
+    """(Cell, {"kpts" (nk, 3), "mo_coeff" (nk, nao, nmo) complex, "mo_occ"
+    (nk, nmo), "e_tot"}) from a periodic `.npz` (keys basis_json, ecp_json,
+    atom_symbols, atom_coords, lattice, spin, kpts, mo_coeff, mo_occ,
+    e_tot)."""
     with np.load(path, allow_pickle=False) as z:
         d = {k: z[k] for k in z.files}
     ecp = json.loads(bytes(d["ecp_json"]).decode())
     cell = Cell([s.decode() if isinstance(s, bytes) else str(s) for s in d["atom_symbols"]],
                 d["atom_coords"], basis_from_pyscf_json(bytes(d["basis_json"]).decode()),
                 d["lattice"], ecp=ecp or None, spin=int(d["spin"]))
-    return cell, {"kpts": d["kpts"], "mo_coeff": d["mo_coeff"], "e_tot": float(d["e_tot"])}
+    return cell, {"kpts": d["kpts"], "mo_coeff": d["mo_coeff"], "mo_occ": d["mo_occ"],
+                  "e_tot": float(d["e_tot"])}
 
 
 def load_expansion_npz(path: str = H2O_CAS88):

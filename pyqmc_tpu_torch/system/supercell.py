@@ -1,5 +1,5 @@
-"""Supercell construction (counterpart of pyqmc_tpu/system/supercell.py:17-50;
-numpy only).
+"""Supercell construction and supercell twists (counterpart of
+pyqmc_tpu/system/supercell.py:17-79; numpy only).
 
 A supercell is defined by an integer matrix S: A_super = S @ A_prim. Its
 atoms are the primitive cell's, translated by every primitive lattice point
@@ -44,3 +44,15 @@ def get_supercell(cell: Cell, S) -> Cell:
     sup.S = S
     sup.scale = len(trans)
     return sup
+
+
+def create_supercell_twists(supercell, primitive_kpts, tol=1e-8):
+    """Group a primitive k-mesh by supercell twist (pyqmc's pbc/twists.py):
+    {twist in fractional supercell coordinates (a tuple): the indices of
+    the k-points that fold onto it}."""
+    frac = np.asarray(primitive_kpts) @ supercell.lattice.T / (2 * np.pi)
+    frac_mod = frac - np.floor(frac + tol)
+    groups = {}
+    for i, f in enumerate(np.round(frac_mod, 8)):
+        groups.setdefault(tuple(f), []).append(i)
+    return {k: np.asarray(v) for k, v in groups.items()}

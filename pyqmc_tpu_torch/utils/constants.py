@@ -12,10 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dtypes import complex_dtype
+
 
 class DeviceConstants:
     """dc.get(device, dtype)[name] -> the array `name` as a tensor on
-    `device`: floating arrays in `dtype`, integer arrays as int64."""
+    `device`: floating arrays in `dtype`, complex arrays in the complex
+    dtype of `dtype`'s precision, integer arrays as int64."""
 
     def __init__(self, **arrays):
         self._arrays = {k: np.asarray(v) for k, v in arrays.items()}
@@ -24,12 +27,15 @@ class DeviceConstants:
     def get(self, device, dtype):
         key = (torch.device(device), dtype)
         if key not in self._cache:
-            self._cache[key] = {
-                k: torch.as_tensor(a, device=device,
-                                   dtype=dtype if np.issubdtype(a.dtype, np.floating) else torch.int64)
-                for k, a in self._arrays.items()
-            }
+            self._cache[key] = {k: torch.as_tensor(a, device=device, dtype=_dtype_of(a, dtype))
+                                for k, a in self._arrays.items()}
         return self._cache[key]
+
+
+def _dtype_of(a, dtype):
+    if np.iscomplexobj(a):
+        return complex_dtype(dtype)
+    return dtype if np.issubdtype(a.dtype, np.floating) else torch.int64
 
 
 _INDEX = {}

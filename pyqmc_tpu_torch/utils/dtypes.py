@@ -31,3 +31,11 @@ def resolve_device(device=None) -> torch.device:
 def real_dtype(device) -> torch.dtype:
     """float32 on a CUDA device, float64 elsewhere."""
     return PRODUCTION_DTYPE if torch.device(device).type == "cuda" else PARITY_DTYPE
+
+
+def complex_dtype(dtype) -> torch.dtype:
+    """The complex dtype of a real (or complex) dtype's precision:
+    complex64 for float32, complex128 for float64."""
+    if dtype.is_complex:
+        return dtype
+    return torch.complex64 if dtype == torch.float32 else torch.complex128

@@ -71,7 +71,7 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for m in ('method.dmc', 'method.extrapolate', 'reblock', 'ops.tmove_sweep',\n"
         "          'ops.move_sweep_pbc', 'ops.gto_kernels', 'ops.distances', 'ops.pbc',\n"
-        "          'observables.ewald', 'system.supercell', 'wftools'):\n"
+        "          'observables.ewald', 'system.supercell', 'wftools', 'method.twist_average'):\n"
         "    assert 'pyqmc_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('pyqmc_tpu_torch')]))\n"
     )
