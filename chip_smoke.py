@@ -17,7 +17,9 @@ and three-body Jastrow; and BASELINE config 3, the CASCI expansion times the
 two- and three-body Jastrow (`h2o_casci_j3_setup`, 2048 walkers), VMC and
 DMC with T-moves; and BASELINE config 5, the diamond supercell at a general
 twist (complex orbitals) with VMC and DMC with T-moves, and its two-twist
-average.
+average; and the observables (density matrices, S^2, S(q), symmetry) on
+H2O and the diamond, and the excited states of H2O (overlap sampling and
+the ensemble optimization).
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -74,7 +76,7 @@ average.
      scatter of the blocks after the first (reblock_by2's first level)
      over the square root of the blocks it averages, the same for the
      earlier chain, so the combined one is sqrt(2) times it.
-  4. one 50-step VMC block with the kernels and one with the plain
+  4. one 10-step VMC block with the kernels and one with the plain
      versions, timed in turns (plain, kernel, kernel, plain)
   5. one kernel-path VMC block under torch.profiler: the device's busy
      time (the sum of its kernel and copy times), the launches per step,
@@ -128,7 +130,7 @@ average.
      0.02 Ha) of the JAX package's CPU reference (tools/
      diamond_jax_reference.py) and the acceptance within 0.05 of its
      acceptance
-  10. one periodic 3-step block with the kernels and one with the plain
+  10. one periodic 2-step block with the kernels and one with the plain
      versions (make_vmc_block(fused=False): the plain sweep, the orbitals
      without K3 and K6), timed in turns,
      then one 10-step kernel block under torch.profiler as in phase 5
@@ -149,8 +151,8 @@ average.
      reference on the same schedule (tools/diamond_dmc_jax_reference.py)
      and not above the warm-up VMC energy per cell by more than 0.02 Ha
   12. the T-move sweep of one step alone (CUDA events), then one periodic
-     3-step DMC block with the plain versions (make_dmc_block(fused=False))
-     and one with the kernels, timed in turns, then a 2-step kernel block
+     2-step DMC block with the plain versions (make_dmc_block(fused=False))
+     and one with the kernels, timed in turns, then a 1-step kernel block
      under torch.profiler as in phase 5 (the profiler's read-back of a
      10-step block's 1.4 million device events took minutes)
   13. K3 at the multi-determinant path's shapes (2048 walkers of
@@ -162,7 +164,7 @@ average.
      the plain version's, the bound (`value_mo_bound`) and the device ns
      per point beside the diamond's (phase 8)
   14. the CASCI anchor: h2o_casci_setup(jastrow=False), the bare
-     multi-determinant Slater, + vmc(), 10 blocks x 50 steps; launch counts
+     multi-determinant Slater, + vmc(), 7 blocks x 50 steps; launch counts
      exactly 50 K3 per block (one per energy: the plain ECP chain's flat
      ratio call) and none of the others; the mean of the blocks after the
      first 2 within 5 x max(SEM, 1e-3) of E_CASCI (the reference's
@@ -173,7 +175,7 @@ average.
      blocks after the first 2 within max(5 x combined SEM, 0.005 Ha) of the
      JAX package's CPU reference on the same schedule
      (tools/h2o_casci_jax_reference.py) and the acceptance within 0.05 of
-     its; then one 10-step block with K3 and one inside plain_orbitals() on
+     its; then one 5-step block with K3 and one inside plain_orbitals() on
      the same streams, timed in turns: positions and acceptance identical
      (the sweep reads no value-only orbitals), energies within 1e-5
      relative; then a 3-step block under torch.profiler as in phase 5; then
@@ -182,7 +184,7 @@ average.
      energies (before the mean) with K3 against plain orbitals on one set of
      rotations, to 1e-4 of each walker's energy plus the largest one's
      magnitude
-  16. multi-Slater-Jastrow DMC: rundmc() from phase 15's walkers, 5 blocks
+  16. multi-Slater-Jastrow DMC: rundmc() from phase 15's walkers, 4 blocks
      x 10 steps at tstep 0.02 with T-moves after 2 VMC warm-up blocks;
      launch counts exactly: K3 once per energy and once per electron per
      T-move sweep, none of K1, K2, K4, K5 (their gates take the determinant
@@ -190,7 +192,7 @@ average.
      acceptance above 0.9, the energy of the last 3 blocks in (-17.6,
      -16.9) Ha and at most 0.05 Ha above the warm-up VMC's; then one
      kernel-path block timed, the T-move and drift-diffusion sweeps alone,
-     and a 2-step block under torch.profiler
+     and a 1-step block under torch.profiler
   17. wavefunction optimization of the H2O Jastrow: generate_wf on the
      committed checkpoint (33 free coefficients: 24 acoeff, 9 bcoeff), 4 x
      10 VMC steps of equilibration (K1 only), then line_minimization with
@@ -254,7 +256,7 @@ average.
      sweep, kinetic energy, ECP ratios and recompute; the per-walker ECP
      energies with K3 against plain orbitals as in phase 15
   22. config 3 DMC: rundmc() from phase 21's walkers, 2 VMC warm-up blocks
-     and 5 x 10 steps at tstep 0.02 with T-moves; K3 exactly once per
+     and 4 x 10 steps at tstep 0.02 with T-moves; K3 exactly once per
      energy and once per electron per T-move sweep (91 per block), none of
      the others; phase 16's windows; the T-move and drift-diffusion sweeps
      alone
@@ -272,12 +274,12 @@ average.
      (at initial_guess's, piled near the nuclei, testwf's finite-difference
      laplacian is roundoff-bound)
   24. general-twist VMC: diamond_twist_setup(500) on the default device +
-     vmc() from phase 9's walkers, 4 blocks x 10 steps; per block exactly
+     vmc() from phase 9's walkers, 3 blocks x 10 steps; per block exactly
      20 K6 and 40 K3 (the pair launch) and no K7 (a complex wavefunction
      runs the plain sweep); the energy per cell of the blocks after the
      first within max(5 x combined SEM, 0.02 Ha) of the JAX package's CPU
      reference (tools/diamond_twist_jax_reference.py vmc), the acceptance
-     within 0.05 of its; a 2-step block under torch.profiler (step time,
+     within 0.05 of its; a 1-step block under torch.profiler (step time,
      device busy time, idle share, events per step); the pieces of a step
      alone and the largest condition number of the orbital matrices along
      one sweep
@@ -301,6 +303,56 @@ average.
      reference (tools/diamond_twist_jax_reference.py average), and the
      reported average the mean of the two
 
+  27. the observables in VMC: h2o_setup (phase 3's wavefunction) + vmc(),
+     3 blocks x 20 steps with accumulate_every 2 and the energy, the OBDM
+     of each spin in all 23 MOs, the TBDM of spins (0, 1) and (0, 0) in the
+     8 lowest MOs (the CASCI active space), S^2 and the symmetry operations
+     C2z, sigma(xz), sigma(yz) about the origin; launch counts exactly (60
+     K1, 30 K2, and per accumulated step 60 K3: 3 per OBDM, 3 + 2 per up
+     electron per TBDM, 2 per exchanged pair for S^2); the blocks after
+     the first: the OBDM's occupied diagonal per spin, its trace, S^2 and
+     sum_ij TBDM^(up,down)[i, j, i, j] over the occupied i, j each within
+     max(5 x combined SEM, 0.02) of the JAX CPU reference on the same
+     schedule (tools/observables_jax_reference.py h2o); each symmetry
+     value's block mean within 1e-3 of +1 (the RHF ground state is totally
+     symmetric) and at 99% of the final walkers within 1e-3; each new K3
+     use (OBDM, TBDM, S^2) against plain_orbitals() on the same walkers and
+     draws, float32, within 1e-3 of each entry plus the walker's largest
+     (S^2: the largest walker's); one call of each accumulator timed
+  28. DMC with the mixed-estimator OBDM: rundmc() from phase 27's walkers,
+     2 VMC warm-up blocks and 4 x 10 steps at tstep 0.02 with T-moves and
+     the OBDM of each spin (its own auxiliary points); launches exactly
+     (per block 10 K4, 10 K5, 11 K2 and 60 K3); the energy of the last 3
+     blocks in phase 6's (-17.6, -16.9) Ha; the occupied diagonals within
+     0.05 of phase 27's
+  29. the periodic observables: diamond_setup(500) + vmc() from phase 9's
+     walkers, 3 x 10 steps with the energy, the KOBDM of each spin and
+     SqAccumulator(cell) (728 q); launches exactly (per step phase 9's
+     1 K7, 2 K6, 4 K3 and 3 K3 per KOBDM); normalize_obdm's diagonal per
+     orbital within max(5 x combined SEM, 0.02) of the JAX CPU reference
+     (tools/observables_jax_reference.py diamond), S(q) on the outermost
+     q-shell within 0.1 of 1; the KOBDMs against plain_orbitals() per
+     walker (1e-3), S(q) and spinSq per walker against float64 on the same
+     positions (1e-4); one KTBDM evaluation of spins (0, 1) at 64 walkers
+     (64 x 32^4 entries) with K3 against plain
+  30. the excited states: h2o_excited_setup (state 0 phase 3's
+     Slater-Jastrow, state 1 the up electron moved from MO 3 to MO 4):
+     sample_overlap, 4 x 10 steps with the energy and an adapted S^2 (the
+     plain two-state sweep; K2 for state 0's energy, K3 for state 1's ECP
+     chain and every S^2 testvalue, exactly); the blocks after the first:
+     normalized |O01| below 0.1, E1 above E0 + 0.1 Ha, E0, E1 and each
+     state's S^2 within max(5 x combined SEM, 0.02 Ha or 0.05) of the JAX
+     CPU reference (tools/observables_jax_reference.py excited), S^2 within
+     0.1 of 0 and 0.15 of 1; state 1's S^2 and ECP energy per walker with
+     K3 against plain; the sweep alone and a traced 2-step block (idle
+     share); then optimize_ensemble (state 0 frozen, the superposition of
+     the ground and excited determinants with det_coeff (0.5, 0.8), its
+     det_coeff optimized; penalty 4, tau 0.3, 4 iterations of 2 x 10
+     steps): launches exactly, every record finite, each iteration's |O01|
+     and E1 within max(5 x combined SEM, 0.05) of the reference's, the
+     ground determinant's share printed after every iteration and below
+     0.580 after the last (the JAX test's bound)
+
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -319,6 +371,7 @@ NSTEPS = 50
 TSTEP = 0.5
 DMC_TSTEP = 0.02
 DMC_NSTEPS = 10
+TIMED_NSTEPS = 10  # phases 4-5: the VMC blocks timed in turns and traced
 DMC_NBLOCKS = 6
 DMC_WARMUP = 5
 TMOVE_BIG_TAU = 0.5
@@ -334,8 +387,8 @@ PBC_DMC_BIG_TSTEP = 0.5
 DIAMOND_DMC_WARMUP = 4  # rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
 DIAMOND_DMC_NBLOCKS = 5
 DIAMOND_DMC_NLAST = 3  # blocks averaged for the energy check
-PBC_TRACE_NSTEPS = 2  # phase 12's traced block (141,000 device events a step)
-PBC_TIMED_NSTEPS = 3  # phases 10 and 12: the kernel and plain blocks timed in turns
+PBC_TRACE_NSTEPS = 1  # phases 12 and 16's traced blocks (141,000 device events a step)
+PBC_TIMED_NSTEPS = 2  # phases 10 and 12: the kernel and plain blocks timed in turns
 # tools/diamond_dmc_jax_reference.py 32 6 5 4 3 3 on the CPU, float64, the
 # same schedule: 6 runs of 32 walkers, E/cell of the last 3 blocks, its
 # standard error over the runs, and each block's mean weight (geometric
@@ -356,13 +409,13 @@ H2O_VMC_E = -16.987946
 H2O_DMC_E = -17.221626
 BLOCK_CHECK_NCONF = 512  # walkers of phase 2's float64 blocks (a power of 2: exact means)
 # the multi-determinant path (phases 13-16): h2o_casci_setup, 2048 walkers
-CASCI_NBLOCKS = 10  # phase 14: 50-step VMC blocks of the bare CASCI expansion
+CASCI_NBLOCKS = 7  # phase 14: 50-step VMC blocks of the bare CASCI expansion
 CASCI_NWARM = 2  # blocks dropped before a mean (phases 14 and 15)
 CASCI_SJ_NBLOCKS = 6  # phase 15: 50-step multi-Slater-Jastrow VMC blocks
 CASCI_DMC_WARMUP = 2  # phase 16: rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
-CASCI_DMC_NBLOCKS = 5
+CASCI_DMC_NBLOCKS = 4
 CASCI_DMC_NLAST = 3
-CASCI_CHECK_NSTEPS = 10  # phase 15's K3 and plain-orbital blocks on one set of streams
+CASCI_CHECK_NSTEPS = 5  # phase 15's K3 and plain-orbital blocks on one set of streams
 CASCI_TRACE_NSTEPS = 3  # phase 15's traced block (the profiler's events of a
 # 50-step block take minutes to read back)
 # tools/h2o_casci_jax_reference.py 256 10 2 8 on the CPU, float64, the same
@@ -402,16 +455,16 @@ J3_OPT_REF = {"e": -17.19870129539305, "sem": 0.0007760304331529966}
 CONFIG3_NBLOCKS = 6  # phase 21: 50-step VMC blocks, the first dropped
 CONFIG3_CHECK_NCONF, CONFIG3_CHECK_NSTEPS = 512, 3  # phase 21's K3 against plain block
 CONFIG3_TRACE_NSTEPS = 3
-CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 5, 3  # phase 22, as phase 16
+CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 4, 3  # phase 22, as phase 16
 # tools/h2o_j3_jax_reference.py vmc 256 8 71 on the CPU, float64, phase 21's
 # schedule at the committed coefficients: 8 runs of 256 walkers (see PERF.md)
 CONFIG3_REF = {"e": -17.193638541019272, "sem": 0.0011872010833002958,
                "acceptance": 0.592219482421875}
 # BASELINE config 5 (phases 23-26): diamond_twist_setup, the 2x2x2 supercell at the
 # general twist of benchmarks/c_solid_benchmark.py:130 (complex orbitals), 500 walkers
-TWIST_NBLOCKS = 4  # phase 24: 10-step VMC blocks from phase 9's walkers, the first dropped
+TWIST_NBLOCKS = 3  # phase 24: 10-step VMC blocks from phase 9's walkers, the first dropped
 TWIST_NSKIP = 1
-TWIST_TRACE_NSTEPS = 2  # phase 24's traced block
+TWIST_TRACE_NSTEPS = 1  # phase 24's traced block
 # phase 25, from phase 24's equilibrated VMC walkers, so without a VMC warm-up
 TWIST_DMC_WARMUP, TWIST_DMC_NBLOCKS, TWIST_DMC_NLAST = 0, 3, 2
 TWIST_AVG_NBLOCKS = 3  # phase 26: 10-step blocks per twist, averaged after max(1, 3 // 4)
@@ -430,6 +483,52 @@ TWIST_DMC_REF = {"e_cell": -10.880689830492036, "sem": 0.0704185173711307,
 TWIST_AVG_REF = {"twists": [{"e_cell": -10.189744350181359, "sem": 0.01872049891038652},
                             {"e_cell": -10.18950655135714, "sem": 0.005427665391170084}],
                  "e_cell_average": -10.189625450769249, "e_cell_average_sem": 0.009745725101965072}
+# the observables and the excited states (phases 27-30)
+OBS_NBLOCKS, OBS_NSTEPS, OBS_EVERY, OBS_NSKIP = 3, 20, 2, 1  # phase 27: VMC, first block dropped
+OBS_NCAS = 8  # the TBDMs' orbitals: the CASCI(8e,8o) active space of data/h2o_ccecp_cas88.npz
+OBS_NOCC = 4  # occupied orbitals per spin of H2O
+# the point group of H2O in the yz plane, its C2 axis on z, about the origin
+OBS_SYM = {"c2z": np.diag([-1.0, -1.0, 1.0]), "sxz": np.diag([1.0, -1.0, 1.0]),
+           "syz": np.diag([-1.0, 1.0, 1.0])}
+OBS_K3_RTOL = 1e-3  # the new K3 uses against plain_orbitals(), float32, per walker
+OBS_DMC_WARMUP, OBS_DMC_NBLOCKS, OBS_DMC_NLAST = 2, 4, 3  # phase 28
+PBC_OBS_NBLOCKS = 3  # phase 29: 10-step VMC blocks from phase 9's walkers
+KTBDM_NCONF = 64  # phase 29's one KTBDM evaluation
+EXC_NBLOCKS, EXC_NSKIP = 4, 1  # phase 30's sample_overlap, 10-step blocks
+ENS_ITERATIONS, ENS_NBLOCKS, ENS_PENALTY, ENS_TAU = 4, 2, 4.0, 0.3  # phase 30's optimize_ensemble
+ENS_FRAC0_BOUND = 0.5 / float(np.hypot(0.5, 0.8)) + 0.05  # the JAX test's bound, 0.580
+# tools/observables_jax_reference.py on the CPU, float64, each schedule of its
+# phase; each entry (mean over the runs, standard error over the runs' means)
+# (see PERF.md): h2o 512 8 81 (phase 27; 8 runs of 512 walkers)
+OBS_REF = {"obdm0_diag": ([1.00218678, 1.00363991, 1.01147956, 0.99872726], [0.00633176,
+    0.00776608, 0.00611262, 0.01273368]), "obdm1_diag": ([0.98906569, 0.9951664, 0.98942051,
+    0.98849455], [0.00370454, 0.00853451, 0.00362554, 0.00925649]), "obdm0_trace": (4.03693546,
+    0.03325624), "obdm1_trace": (3.95698885, 0.02688583), "s2": (8.039e-05, 9.947e-05),
+    "tbdm01_occ": (15.92980094, 0.1614828), "energy": (-17.00071819, 0.00485726)}
+# diamond 64 4 91 (phase 29; 4 runs of 64 walkers, after 4 equilibration blocks)
+PBC_OBS_REF = {"kobdm0_normalized_diag": ([0.999874, 0.999605, 0.999909, 0.999553, 0.999485,
+    1.000463, 1.000278, 0.999779, 1.000369, 0.999272, 1.000465, 1.000171, 1.000701, 0.999493,
+    0.999703, 1.000303, 1.000113, 1.000015, 0.999846, 1.000025, 1.000262, 0.999762, 0.999775,
+    1.000323, 1.000243, 1.000502, 0.999883, 0.999734, 1.000223, 0.999881, 1.000446, 1.00022],
+    [0.000381, 0.000251, 0.000405, 0.000462, 0.000418, 0.000177, 0.000362, 0.000268, 0.000325,
+    0.000234, 0.000202, 0.000573, 0.000326, 0.000297, 0.000371, 0.00017, 0.000822, 0.000596,
+    0.000475, 0.000426, 0.000697, 0.000399, 0.000376, 0.000504, 0.00035, 0.000687, 0.000446,
+    0.000318, 0.000184, 0.000281, 0.000639, 0.000414]), "kobdm1_normalized_diag": ([0.999684,
+    1.000055, 0.999577, 1.000492, 1.0, 1.000425, 0.999644, 1.000203, 0.999553, 0.99961, 0.999778,
+    1.000172, 0.999993, 0.999606, 0.999931, 0.999135, 0.999867, 0.999261, 0.999432, 1.000323,
+    0.999843, 1.000027, 0.999739, 0.999856, 0.99957, 1.000347, 0.999901, 1.000287, 0.999423,
+    1.000095, 1.000082, 1.000454], [0.000366, 0.000154, 0.000339, 0.000378, 0.00055, 8.3e-05,
+    0.000164, 0.000343, 0.000267, 0.00058, 0.00061, 0.000459, 0.000299, 0.000767, 0.000378,
+    0.000161, 0.000554, 0.000381, 0.000171, 0.000234, 0.000271, 0.000491, 0.000376, 0.000177,
+    0.000277, 0.000286, 0.000462, 0.000522, 0.000346, 0.000124, 0.000299, 0.000714]), "sq_outer":
+    (1.000227, 0.006508), "e_cell": (-10.196934, 0.017944)}
+# excited 512 8 101 (phase 30; 8 runs of 512 walkers; ens_* per iteration of
+# optimize_ensemble, ens_frac0 after its last)
+EXC_REF = {"e0": (-16.97963223, 0.00715419), "e1": (-16.58830466, 0.00856158), "s2_0": (0.00011238,
+    0.00012291), "s2_1": (1.00246336, 0.00165961), "o01": (0.01198926, 0.00168403), "ens_o01":
+    ([0.53989845, 0.21298853, 0.04828623, 0.0430098], [0.00422022, 0.0161845, 0.01192906,
+    0.01036828]), "ens_e1": ([-16.75456327, -16.62073176, -16.60701541, -16.54743905], [0.0290876,
+    0.027128, 0.02678173, 0.02074364]), "ens_frac0": ([0.05709011], [0.00941567])}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -2564,6 +2663,463 @@ def twist_phases(t_start, card, counters, gamma_configs):
             "vmc_trace": ours_v}
 
 
+# --- phases 27-30: the observables and the excited states --------------------------
+
+def per_walker_close(label, k, p, tol):
+    """k against p entry by entry, |k - p| <= tol (|p| + the walker's
+    largest |p|); returns the largest |k - p| over the walker's largest |p|."""
+    kp, pp = k.reshape(k.shape[0], -1), p.reshape(p.shape[0], -1)
+    scale = torch.amax(torch.abs(pp), dim=1, keepdim=True)
+    err = torch.abs(kp - pp)
+    worst = float(torch.max(err / torch.clamp(scale, min=1e-30)))
+    check(bool(torch.all(err <= tol * (torch.abs(pp) + scale))),
+          f"{label}: largest error {worst:.3e} of the walker's largest entry")
+    return worst
+
+
+def k3_against_plain(phase, label, fn, counters, tol=OBS_K3_RTOL, per_walker=True):
+    """fn() with K3 and inside plain_orbitals() on the same inputs: every
+    output key held per walker (per_walker) or against the largest entry
+    (close_rel). Returns ({key: the largest error over the walker's, or the
+    whole output's, largest |entry|}, K3 launches of the kernel call)."""
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+
+    with plain_orbitals():
+        p = fn()
+    before = counters["value_mo"].n
+    k = fn()
+    n_k3 = counters["value_mo"].n - before
+    check(n_k3 > 0, f"{phase} {label}: K3 was not launched")
+    errs = {}
+    for key in p:
+        check(bool(torch.all(torch.isfinite(k[key]))), f"{phase} {label} {key}: not finite")
+        name = f"{phase} {label} {key}, K3 against plain"
+        if per_walker:
+            errs[key] = per_walker_close(name, k[key], p[key], tol)
+        else:
+            scale = max(float(torch.max(torch.abs(p[key]))), 1e-30)
+            errs[key] = close_rel(name, k[key], p[key], tol) / scale
+    where = "the walker's" if per_walker else "all walkers'"
+    print(f"{phase}: {label} with K3 ({n_k3} launches) against plain_orbitals() on the same "
+          f"walkers and draws, largest error over {where} largest |entry|: "
+          f"{json.dumps({k_: float(f'{v:.3e}') for k_, v in errs.items()})}", flush=True)
+    return errs, n_k3
+
+
+def windowed(label, x, sem, ref, floor):
+    """x +- sem against ref = (mean, sem), entry by entry, within max(5 x
+    combined SEM, floor); returns the largest distance in combined SEMs."""
+    x, sem = np.atleast_1d(np.asarray(x, float)), np.atleast_1d(np.asarray(sem, float))
+    rm, rs = np.atleast_1d(np.asarray(ref[0], float)), np.atleast_1d(np.asarray(ref[1], float))
+    comb = np.hypot(sem, rs)
+    window = np.maximum(5 * comb, floor)
+    check(bool(np.all(np.abs(x - rm) <= window)),
+          f"{label} {np.round(x, 6).tolist()} off the JAX CPU reference {np.round(rm, 6).tolist()} "
+          f"by more than {np.round(window, 6).tolist()}")
+    return float(np.max(np.abs(x - rm) / np.maximum(comb, 1e-12)))
+
+
+def mean_sem(rows):
+    """Mean over blocks and its standard error (rows: a list of arrays)."""
+    a = np.asarray(rows, dtype=np.float64)
+    return np.mean(a, axis=0), np.std(a, axis=0, ddof=1) / np.sqrt(len(a))
+
+
+def observables_phases(t_start, card, counters, gamma_configs):
+    """Phases 27-30: the observables of H2O in VMC and (the OBDM) in DMC,
+    the periodic KOBDM, KTBDM and S(q) on the diamond, and the excited
+    states of H2O (overlap sampling, ensemble optimization). gamma_configs:
+    phase 9's final walkers. Returns the launch counts per phase."""
+    from pyqmc_tpu_torch.configs import Configs
+    from pyqmc_tpu_torch.entry import diamond_setup, h2o_excited_setup, h2o_setup
+    from pyqmc_tpu_torch.method.dmc import rundmc
+    from pyqmc_tpu_torch.method.ensemble import optimize_ensemble
+    from pyqmc_tpu_torch.method.sample_many import make_overlap_block, sample_overlap
+    from pyqmc_tpu_torch.method.vmc import vmc
+    from pyqmc_tpu_torch.observables.ecp import rotations_from_quaternions
+    from pyqmc_tpu_torch.observables.obdm import (KOBDMAccumulator, OBDMAccumulator,
+                                                  normalize_obdm)
+    from pyqmc_tpu_torch.observables.s2 import S2Accumulator
+    from pyqmc_tpu_torch.observables.sq import SqAccumulator
+    from pyqmc_tpu_torch.observables.symmetry import SymmetryAccumulator
+    from pyqmc_tpu_torch.observables.tbdm import KTBDMAccumulator, TBDMAccumulator
+    from pyqmc_tpu_torch.system.io import load_npz
+
+    none = {k: 0 for k in counters}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    def draws_of(acc, nconf, seed):
+        """One step's draws of an accumulator, from a generator of its own."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return {k: v[0] for k, v in acc.draw(gen, 1, nconf, "cuda", torch.float32).items()}
+
+    out = {}
+    print(f"phase 27 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t27 = time.perf_counter()
+    # phase 27: the molecular observables in VMC, phase 3's wavefunction
+    mol, wf, params, configs, acc = h2o_setup(NCONF, dtype=torch.float32)
+    _, mf = load_npz()
+    mo = mf.mo_coeff[0]
+    accs = {"energy": acc["energy"], "obdm0": OBDMAccumulator(mol, mo, spin=0),
+            "obdm1": OBDMAccumulator(mol, mo, spin=1),
+            "tbdm01": TBDMAccumulator(mol, mo[:, :OBS_NCAS], spin=(0, 1)),
+            "tbdm00": TBDMAccumulator(mol, mo[:, :OBS_NCAS], spin=(0, 0)),
+            "s2": S2Accumulator(mol),
+            "sym": SymmetryAccumulator(mol, list(OBS_SYM.values()), names=list(OBS_SYM))}
+    nup, ndn = mol.nelec
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    reset_counts()
+    t0 = time.perf_counter()
+    oblocks, oconfigs = vmc(wf, params, configs, nblocks=OBS_NBLOCKS, nsteps_per_block=OBS_NSTEPS,
+                            tstep=TSTEP, accumulators=accs, generator=gen,
+                            accumulate_every=OBS_EVERY)
+    torch.cuda.synchronize()
+    t_obs = time.perf_counter() - t0
+    olaunches = read_counts()
+    nacc = OBS_NBLOCKS * (-(-OBS_NSTEPS // OBS_EVERY))
+    # K3 per accumulated step: each OBDM 3 (the orbitals at r' and at the
+    # electrons, testvalue_many), each TBDM 3 + 2 per electron e1 (testvalue,
+    # testvalue_many), S^2 2 per pair; the symmetry's recomputes take mode-1
+    # orbitals, which K3 does not serve
+    k3_step = 2 * 3 + (3 + 2 * nup) + (3 + 2 * nup) + 2 * nup * ndn
+    oexpect = {**none, "vmc_sweep": OBS_NBLOCKS * OBS_NSTEPS, "ecp_energy": nacc,
+               "value_mo": nacc * k3_step}
+    check(olaunches == oexpect, f"phase 27 launches {olaunches}, expected {oexpect}")
+    for b in oblocks:
+        check(all(np.all(np.isfinite(v)) for k, v in b.items() if k != "block"),
+              f"phase 27: non-finite averages in block {b['block']}")
+        print(f"phase 27 block {b['block']}: E={b['energytotal']:.6f} acc={b['acceptance']:.4f} "
+              f"S2={b['s2S2']:.6f} sym {json.dumps({k: round(b['sym' + k], 7) for k in OBS_SYM})} "
+              f"obdm0 diag {np.round(np.diag(b['obdm0value'])[:OBS_NOCC], 4).tolist()} "
+              f"host time {b['block time']:.3f} s", flush=True)
+    kept = oblocks[OBS_NSKIP:]
+
+    def tbdm_occ(t):
+        return float(sum(t[i, j, i, j] for i in range(OBS_NOCC) for j in range(OBS_NOCC)))
+
+    quantities = {
+        "obdm0_diag": [np.diag(b["obdm0value"])[:OBS_NOCC] for b in kept],
+        "obdm1_diag": [np.diag(b["obdm1value"])[:OBS_NOCC] for b in kept],
+        "obdm0_trace": [np.trace(b["obdm0value"]) for b in kept],
+        "obdm1_trace": [np.trace(b["obdm1value"]) for b in kept],
+        "s2": [b["s2S2"] for b in kept], "tbdm01_occ": [tbdm_occ(b["tbdm01value"]) for b in kept]}
+    obs27 = {}
+    for name, rows in quantities.items():
+        m, s = mean_sem(rows)
+        d = windowed(f"phase 27 {name}", m, s, OBS_REF[name], 0.02)
+        obs27[name] = {"mean": np.round(m, 6).tolist(), "sem": np.round(s, 6).tolist(),
+                       "reference": OBS_REF[name][0], "reference_sem": OBS_REF[name][1],
+                       "combined_sem_distance": round(d, 3)}
+    sym_means = {k: float(np.mean([b["sym" + k] for b in kept])) for k in OBS_SYM}
+    for k, v in sym_means.items():
+        check(abs(v - 1.0) <= 1e-3, f"phase 27: symmetry {k} block mean {v} is not within 1e-3 of 1")
+    print(f"phase 27: launches {olaunches} ({k3_step} K3 per accumulated step, {nacc} steps); "
+          f"{t_obs:.2f} s for {OBS_NBLOCKS} x {OBS_NSTEPS} steps ({t_obs / nacc:.4f} s per "
+          f"accumulated step and its sweep); observables against the JAX CPU reference: "
+          f"{json.dumps(obs27)}; symmetry block means {json.dumps(sym_means)}; {card}", flush=True)
+    # per walker, at the final walkers: the symmetry values, and each new K3
+    # use against plain orbitals on one set of draws
+    x = oconfigs.positions
+    st = wf.recompute(params, x)
+    sym = accs["sym"](wf, params, st, x)
+    devs = {k: float(torch.max(torch.abs(v - 1.0))) for k, v in sym.items()}
+    within = {k: float(torch.mean((torch.abs(v - 1.0) <= 1e-3).to(torch.float64)))
+              for k, v in sym.items()}
+    print(f"phase 27: symmetry per walker at the final walkers, largest |value - 1| "
+          f"{json.dumps(devs)}, share within 1e-3 {json.dumps(within)}", flush=True)
+    for k in OBS_SYM:
+        check(within[k] >= 0.99, f"phase 27: only {within[k]} of the walkers have {k} within 1e-3 "
+              "of 1")
+    k3_27 = {}
+    for i, name in enumerate(("obdm0", "obdm1", "tbdm01", "tbdm00")):
+        d = draws_of(accs[name], x.shape[0], 300 + i)
+        k3_27[name] = k3_against_plain("phase 27", name, lambda a=accs[name], d=d: a(
+            wf, params, st, x, draws=d), counters)[0]
+    k3_27["s2"] = k3_against_plain("phase 27", "s2", lambda: accs["s2"](wf, params, st, x),
+                                   counters, per_walker=False)[0]
+    pieces = {}
+    for name in ("energy", "obdm0", "tbdm01", "s2", "sym"):
+        kw = {"draws": draws_of(accs[name], x.shape[0], 310)} if hasattr(accs[name], "draw") else {}
+        rot = torch.eye(3, device="cuda").expand(nup + ndn, x.shape[0], 3, 3)
+        pieces[name] = round(cuda_ms(lambda a=accs[name], kw=kw: a(wf, params, st, x, rot, **kw),
+                                     1), 3)
+    print(f"phase 27: one accumulator call alone (CUDA events, host work included), ms: "
+          f"{json.dumps(pieces)}; {card}", flush=True)
+    out["27"] = olaunches
+    t27 = time.perf_counter() - t27
+
+    print(f"phase 28 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t28 = time.perf_counter()
+    # phase 28: DMC with the mixed-estimator OBDM, from phase 27's walkers
+    dacc = {"obdm0": accs["obdm0"], "obdm1": accs["obdm1"]}
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    reset_counts()
+    t0 = time.perf_counter()
+    dblocks, _, _ = rundmc(wf, params, oconfigs, nblocks=OBS_DMC_NBLOCKS,
+                           nsteps_per_block=DMC_NSTEPS, tstep=DMC_TSTEP, energy_acc=acc["energy"],
+                           accumulators=dacc, generator=gen, warmup_vmc_blocks=OBS_DMC_WARMUP)
+    torch.cuda.synchronize()
+    t_dmc = time.perf_counter() - t0
+    dlaunches = read_counts()
+    per_block = {"dmc_sweep": DMC_NSTEPS, "tmove_sweep": DMC_NSTEPS,
+                 "ecp_energy": DMC_NSTEPS + 1, "value_mo": DMC_NSTEPS * 2 * 3}
+    warm = 10 * OBS_DMC_WARMUP
+    dexpect = {**none, "vmc_sweep": warm, "ecp_energy": warm + 1 + OBS_DMC_NBLOCKS * 11,
+               **{k: OBS_DMC_NBLOCKS * v for k, v in per_block.items() if k != "ecp_energy"}}
+    check(dlaunches == dexpect, f"phase 28 launches {dlaunches}, expected {dexpect}")
+    for b in dblocks:
+        check(all(np.all(np.isfinite(v)) for k, v in b.items()),
+              f"phase 28: non-finite averages in block {b['block']}")
+        print(f"phase 28 block {b['block']}: E={b['energytotal']:.6f} w={b['weight']:.5f} "
+              f"acc={b['acceptance']:.4f} obdm0 diag "
+              f"{np.round(np.diag(b['obdm0value'])[:OBS_NOCC], 4).tolist()} obdm1 diag "
+              f"{np.round(np.diag(b['obdm1value'])[:OBS_NOCC], 4).tolist()}", flush=True)
+    e_dmc = float(np.mean([b["energytotal"] for b in dblocks[-OBS_DMC_NLAST:]]))
+    check(-17.6 < e_dmc < -16.9, f"phase 28: DMC energy {e_dmc} outside phase 6's (-17.6, -16.9)")
+    dmc_diag = {}
+    for s in (0, 1):
+        dd = np.mean([np.diag(b[f"obdm{s}value"])[:OBS_NOCC] for b in dblocks], axis=0)
+        vd = np.asarray(obs27[f"obdm{s}_diag"]["mean"])
+        check(bool(np.all(np.abs(dd - vd) <= 0.05)),
+              f"phase 28: the mixed-estimator OBDM diagonal {dd} (spin {s}) off phase 27's {vd} "
+              "by more than 0.05")
+        dmc_diag[s] = np.round(dd, 5).tolist()
+    print(f"phase 28: launches {dlaunches} (per block {json.dumps(per_block)}), E(last "
+          f"{OBS_DMC_NLAST} blocks)={e_dmc:.6f} Ha, OBDM occupied diagonal per spin "
+          f"{json.dumps(dmc_diag)} (VMC {obs27['obdm0_diag']['mean']}, "
+          f"{obs27['obdm1_diag']['mean']}); {t_dmc:.2f} s; {card}", flush=True)
+    out["28"] = dlaunches
+    t28 = time.perf_counter() - t28
+
+    print(f"phase 29 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t29 = time.perf_counter()
+    # phase 29: the periodic observables on the diamond, from phase 9's walkers
+    sup, pwf, pparams, _, pacc = diamond_setup(DIAMOND_NCONF, dtype=torch.float32)
+    orb = pwf.wfs[0].orbitals
+    sq = SqAccumulator(sup)
+    paccs = {"energy": pacc["energy"], "kobdm0": KOBDMAccumulator(sup, orb, spin=0),
+             "kobdm1": KOBDMAccumulator(sup, orb, spin=1), "sq": sq}
+    start = Configs.create(gamma_configs.positions.clone(), gamma_configs.geometry,
+                           wrap=gamma_configs.wrap.clone())
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    reset_counts()
+    t0 = time.perf_counter()
+    qblocks, qconfigs = vmc(pwf, pparams, start, nblocks=PBC_OBS_NBLOCKS,
+                            nsteps_per_block=DIAMOND_NSTEPS, tstep=TSTEP, accumulators=paccs,
+                            generator=gen)
+    torch.cuda.synchronize()
+    t_pobs = time.perf_counter() - t0
+    qlaunches = read_counts()
+    nstep = PBC_OBS_NBLOCKS * DIAMOND_NSTEPS
+    # per step: phase 9's sweep, K6 per kinetic chunk and K3 per ECP chunk
+    # (1, 2 and 4 at 500 walkers), and 3 K3 for each KOBDM
+    nelec, nsel = sum(sup.nelec), pacc["energy"].ecp_acc.nselect
+    n_k6 = -(-nelec // max(1, 16384 // DIAMOND_NCONF))
+    n_k3 = -(-nelec // max(1, 262144 // (DIAMOND_NCONF * nsel)))
+    qexpect = {**none, "pbc_sweep": nstep, "gto_eval": n_k6 * nstep,
+               "value_mo": (n_k3 + 2 * 3) * nstep}
+    check(qlaunches == qexpect, f"phase 29 launches {qlaunches}, expected {qexpect}")
+    rows = {s: [] for s in (0, 1)}
+    qn = np.linalg.norm(sq.qlist, axis=1)
+    outer = qn > qn.max() * (1 - 1e-9) - 1e-9
+    sq_outer = []
+    for b in qblocks:
+        check(all(np.all(np.isfinite(v)) for k, v in b.items()),
+              f"phase 29: non-finite averages in block {b['block']}")
+        for s in (0, 1):
+            rows[s].append(np.diag(normalize_obdm(b[f"kobdm{s}value_re"], b[f"kobdm{s}norm"])))
+        sq_outer.append(float(np.mean(b["sqSq"][outer])))
+        print(f"phase 29 block {b['block']}: E/cell={b['energytotal'] / DIAMOND_NCELL:.6f} "
+              f"acc={b['acceptance']:.4f} S(q) outer shell {sq_outer[-1]:.4f} host time "
+              f"{b['block time']:.3f} s", flush=True)
+    kobdm29 = {}
+    for s in (0, 1):
+        m, se = mean_sem(rows[s])
+        key = f"kobdm{s}_normalized_diag"
+        d = windowed(f"phase 29 {key}", m, se, PBC_OBS_REF[key], 0.02)
+        kobdm29[s] = {"min": round(float(m.min()), 6), "max": round(float(m.max()), 6),
+                      "combined_sem_distance": round(d, 3)}
+    m_outer = float(np.mean(sq_outer))
+    check(abs(m_outer - 1.0) <= 0.1, f"phase 29: S(q) on the outermost shell {m_outer}, not 1")
+    print(f"phase 29: launches {qlaunches}; normalized KOBDM diagonal per spin "
+          f"{json.dumps(kobdm29)} (JAX CPU reference per orbital within max(5 x combined SEM, "
+          f"0.02)); S(q) on the outermost q-shell ({int(outer.sum())} of {len(qn)} q) "
+          f"{m_outer:.5f} (JAX {PBC_OBS_REF['sq_outer'][0]:.5f}); {t_pobs:.2f} s for "
+          f"{PBC_OBS_NBLOCKS} x {DIAMOND_NSTEPS} steps; {card}", flush=True)
+    x = qconfigs.positions
+    st = pwf.recompute(pparams, x)
+    k3_29 = {}
+    for s in (0, 1):
+        d = draws_of(paccs[f"kobdm{s}"], x.shape[0], 320 + s)
+        k3_29[f"kobdm{s}"] = k3_against_plain("phase 29", f"kobdm{s}", lambda a=paccs[f"kobdm{s}"],
+                                              d=d: a(pwf, pparams, st, x, draws=d), counters)[0]
+    sq32 = sq(pwf, pparams, st, x)
+    sq64 = SqAccumulator(sup)(pwf, pparams, st, x.to(torch.float64))
+    sq_err = {k: close_rel(f"phase 29 {k} per walker, float32 against float64", sq32[k],
+                           sq64[k].to(torch.float32), 1e-4) for k in sq32}
+    ktbdm = KTBDMAccumulator(sup, orb, spin=(0, 1))
+    xs = x[:KTBDM_NCONF]
+    st_s = pwf.recompute(pparams, xs)
+    d = draws_of(ktbdm, KTBDM_NCONF, 330)
+    t0 = time.perf_counter()
+    k3_29["ktbdm01"], n_kt = k3_against_plain("phase 29", f"ktbdm01 at {KTBDM_NCONF} walkers",
+                                              lambda: ktbdm(pwf, pparams, st_s, xs, draws=d),
+                                              counters)
+    t_kt = time.perf_counter() - t0
+    print(f"phase 29: S(q) and spinSq per walker, float32 against float64 on the same "
+          f"positions: {json.dumps({k: float(f'{v:.3e}') for k, v in sq_err.items()})}; KTBDM "
+          f"(spins 0, 1; output {KTBDM_NCONF} x 32^4) with K3 and plain {t_kt:.2f} s together",
+          flush=True)
+    out["29"] = qlaunches
+    t29 = time.perf_counter() - t29
+
+    print(f"phase 30 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t30 = time.perf_counter()
+    # phase 30: the excited states of H2O
+    xmol, wfs, plist, xconfigs, xacc, ens = h2o_excited_setup(NCONF, dtype=torch.float32)
+    s2 = S2Accumulator(xmol)
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    reset_counts()
+    t0 = time.perf_counter()
+    xdata, xcfg = sample_overlap(wfs, plist, xconfigs, gen, nblocks=EXC_NBLOCKS, nsteps=10,
+                                 tstep=TSTEP, energy_acc=xacc["energy"], accumulators={"s2": s2})
+    torch.cuda.synchronize()
+    t_ovl = time.perf_counter() - t0
+    xlaunches = read_counts()
+    nstep = EXC_NBLOCKS * 10
+    # per step: state 0's energy on K2; state 1's (outside K2's gate) the
+    # flat ECP chain, one K3; S^2 of each state 2 K3 per pair; the sweep plain
+    xexpect = {**none, "ecp_energy": nstep, "value_mo": nstep * (1 + 2 * 2 * nup * ndn)}
+    check(xlaunches == xexpect, f"phase 30 sample_overlap launches {xlaunches}, expected {xexpect}")
+    rows = []
+    for dd in xdata:
+        N = dd["overlap"]
+        rows.append({"e0": dd["energy0_num"] / dd["energy0_den"],
+                     "e1": dd["energy1_num"] / dd["energy1_den"],
+                     "s2_0": dd["s20_S2_num"] / dd["state0_den"],
+                     "s2_1": dd["s21_S2_num"] / dd["state1_den"],
+                     "o01": float(abs(N[0, 1]) / np.sqrt(abs(N[0, 0] * N[1, 1]))),
+                     "acceptance": dd["acceptance"]})
+        check(all(np.isfinite(v) for v in rows[-1].values()),
+              f"phase 30: non-finite overlap block {dd['block']}")
+        print(f"phase 30 overlap block {dd['block']}: "
+              + json.dumps({k: round(float(v), 6) for k, v in rows[-1].items()})
+              + f" host time {dd['block time']:.3f} s", flush=True)
+    kept = rows[EXC_NSKIP:]
+    res = {}
+    for k, floor in (("e0", 0.02), ("e1", 0.02), ("s2_0", 0.05), ("s2_1", 0.05)):
+        m, se = mean_sem([r[k] for r in kept])
+        d = windowed(f"phase 30 {k}", m, se, EXC_REF[k], floor)
+        res[k] = {"mean": round(float(m), 6), "sem": round(float(se), 6),
+                  "reference": EXC_REF[k][0], "reference_sem": EXC_REF[k][1],
+                  "combined_sem_distance": round(d, 3)}
+    o01 = float(np.mean([r["o01"] for r in kept]))
+    check(o01 < 0.1, f"phase 30: normalized |O01| {o01} not below 0.1")
+    check(res["e1"]["mean"] > res["e0"]["mean"] + 0.1,
+          f"phase 30: E1 {res['e1']['mean']} not above E0 {res['e0']['mean']} + 0.1 Ha")
+    check(abs(res["s2_0"]["mean"]) < 0.1, f"phase 30: state 0's S^2 {res['s2_0']['mean']} not 0")
+    check(abs(res["s2_1"]["mean"] - 1.0) < 0.15, f"phase 30: state 1's S^2 {res['s2_1']['mean']}")
+    print(f"phase 30: sample_overlap launches {xlaunches}; |O01| {o01:.5f} (JAX "
+          f"{EXC_REF['o01'][0]:.5f}); {json.dumps(res)}; {t_ovl:.2f} s for {nstep} steps "
+          f"({t_ovl / nstep:.4f} s per overlap step with both energies and S^2); {card}",
+          flush=True)
+    # per walker: state 1's S^2 and ECP energy with K3 against plain orbitals
+    x = xcfg.positions
+    sts = [w.recompute(p, x) for w, p in zip(wfs, plist)]
+    k3_30 = {"s2_state1": k3_against_plain("phase 30", "state 1's S^2", lambda: s2(
+        wfs[1], plist[1], sts[1], x), counters, per_walker=False)[0]}
+    rot = rotations_from_quaternions(torch.randn((nup + ndn, x.shape[0], 4), generator=gen,
+                                                 device="cuda"))
+    k3_30["ecp_state1"] = per_walker_ecp("phase 30 state 1", wfs[1], plist[1], sts[1], x, rot,
+                                         xacc["energy"].ecp_acc)[1]
+    # the sweep alone and a traced step with the energies
+    sweep_only = make_overlap_block(wfs, xcfg.geometry, TSTEP, 2)
+    with_energy = make_overlap_block(wfs, xcfg.geometry, TSTEP, 2, energy_acc=xacc["energy"])
+    walk = {"pos": x, "wrap": xcfg.wrap}
+
+    def run_block(fn):
+        walk["pos"], walk["wrap"], _ = fn(plist, walk["pos"], walk["wrap"], gen)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run_block(sweep_only)
+    t_sweep = (time.perf_counter() - t0) / 2
+    t0 = time.perf_counter()
+    run_block(with_energy)
+    t_energy = (time.perf_counter() - t0) / 2
+    report_trace("phase 30", "2-step overlap block with both energies", 2,
+                 traced(lambda: run_block(with_energy)), 2 * t_energy)
+    print(f"phase 30: overlap step alone: the two-state sweep {t_sweep:.4f} s, with both "
+          f"energies {t_energy:.4f} s (plain sweep; predicted 0.2-0.4 s); {card}", flush=True)
+    # optimize_ensemble: state 0 frozen, the superposition's det_coeff
+    t1 = ens["transforms"][1]
+    shares = []
+    deserialize = t1.deserialize
+
+    def recording(base, flat):
+        new = deserialize(base, flat)
+        c = new["wf0"]["det_coeff"].double().cpu().numpy()
+        shares.append(float(abs(c[0]) / np.linalg.norm(c)))
+        print(f"phase 30 ensemble iteration {len(shares) - 1}: det_coeff "
+              f"{np.round(c, 6).tolist()}, ground share |c0|/|c| {shares[-1]:.5f}", flush=True)
+        return new
+
+    t1.deserialize = recording
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    _, _, _, econfigs, _, _ = h2o_excited_setup(NCONF, dtype=torch.float32, seed=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    eparams, records = optimize_ensemble(**ens, configs=econfigs, energy_acc=xacc["energy"],
+                                         generator=gen, max_iterations=ENS_ITERATIONS,
+                                         penalty=ENS_PENALTY, tau=ENS_TAU, nblocks=ENS_NBLOCKS,
+                                         nsteps=10, tstep=TSTEP)
+    torch.cuda.synchronize()
+    t_ens = time.perf_counter() - t0
+    t1.deserialize = deserialize
+    elaunches = read_counts()
+    nstep = ENS_NBLOCKS * 10
+    # per iteration: every overlap step's two energies (K2 for state 0, one
+    # K3 for the superposition's flat ECP chain) and the gradient's energy
+    eexpect = {**none, "ecp_energy": ENS_ITERATIONS * nstep,
+               "value_mo": ENS_ITERATIONS * (nstep + 1)}
+    check(elaunches == eexpect, f"phase 30 optimize_ensemble launches {elaunches}, expected "
+          f"{eexpect}")
+    traj = {"o01": [], "e1": []}
+    for r in records:
+        N = r["overlap"]
+        traj["o01"].append(float(abs(N[0, 1]) / np.sqrt(abs(N[0, 0] * N[1, 1]))))
+        traj["e1"].append(float(r["energy1"]))
+    check(all(np.isfinite(v) for v in traj["e1"] + traj["o01"]), "phase 30: non-finite records")
+    for it in range(ENS_ITERATIONS):
+        for k, floor in (("o01", 0.05), ("e1", 0.05)):
+            ref = EXC_REF[f"ens_{k}"]
+            # one run of 2048 walkers scatters about as the mean of 4 of the
+            # reference's 8 runs of 512 does: its standard error is taken as
+            # sqrt(2) times the reference's
+            windowed(f"phase 30 ensemble iteration {it} {k}", traj[k][it],
+                     np.sqrt(2) * ref[1][it], (ref[0][it], ref[1][it]), floor)
+    check(shares[-1] < ENS_FRAC0_BOUND,
+          f"phase 30: the ground share {shares[-1]} not below {ENS_FRAC0_BOUND}")
+    print(f"phase 30: optimize_ensemble launches {elaunches}; per iteration |O01| "
+          f"{np.round(traj['o01'], 5).tolist()} (JAX {EXC_REF['ens_o01'][0]}), E1 "
+          f"{np.round(traj['e1'], 5).tolist()} (JAX {EXC_REF['ens_e1'][0]}), ground share "
+          f"{np.round(shares, 5).tolist()} (JAX after the last {EXC_REF['ens_frac0'][0]}; bound "
+          f"{ENS_FRAC0_BOUND:.4f}); {t_ens:.2f} s, {t_ens / ENS_ITERATIONS:.3f} s per iteration "
+          f"({ENS_NBLOCKS} x 10 overlap steps and a gradient); {card}", flush=True)
+    out["30_overlap"], out["30_ensemble"] = xlaunches, elaunches
+    t30 = time.perf_counter() - t30
+    print(f"phases 27-30: {t27:.1f} + {t28:.1f} + {t29:.1f} + {t30:.1f} = "
+          f"{t27 + t28 + t29 + t30:.1f} s", flush=True)
+    out["k3_errors"] = {"27": k3_27, "29": k3_29, "30": k3_30}
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0: the card (and the package: nothing is printed without both)
@@ -2656,8 +3212,9 @@ def main():
     from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 
     acc_plain = {"energy": EnergyAccumulator(mol, ecp_acc=ECPAccumulator(mol, fused=False))}
-    fns = {"kernel": make_vmc_block(wf, acc, configs.geometry, TSTEP, NSTEPS, fused=True),
-           "plain": make_vmc_block(wf, acc_plain, configs.geometry, TSTEP, NSTEPS, fused=False)}
+    fns = {"kernel": make_vmc_block(wf, acc, configs.geometry, TSTEP, TIMED_NSTEPS, fused=True),
+           "plain": make_vmc_block(wf, acc_plain, configs.geometry, TSTEP, TIMED_NSTEPS,
+                                   fused=False)}
     walk = {"pos": configs.positions, "wrap": configs.wrap}
 
     def vmc_block(name, fn):
@@ -2665,13 +3222,14 @@ def main():
         check(bool(torch.isfinite(avg["energytotal"])), f"non-finite {name} VMC block energy")
 
     tk, tp, times = timed_in_turns(fns, vmc_block)
-    print(f"phase 4: 50-step VMC block with kernels {tk:.4f} s ({NCONF * NSTEPS / tk:.1f} "
-          f"walker-steps/s), plain {tp:.4f} s ({NCONF * NSTEPS / tp:.1f} walker-steps/s); "
+    print(f"phase 4: {TIMED_NSTEPS}-step VMC block with kernels {tk:.4f} s "
+          f"({NCONF * TIMED_NSTEPS / tk:.1f} walker-steps/s), plain {tp:.4f} s "
+          f"({NCONF * TIMED_NSTEPS / tp:.1f} walker-steps/s); "
           f"runs {json.dumps(times)}", flush=True)
 
     print(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # phase 5: one traced kernel VMC block; the device's busy time and idle share
-    ours_vmc = report_trace("phase 5", "kernel VMC block", NSTEPS,
+    ours_vmc = report_trace("phase 5", "kernel VMC block", TIMED_NSTEPS,
                             traced(lambda: vmc_block("traced", fns["kernel"])), tk)
 
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2977,9 +3535,10 @@ def main():
     per_point_64 = (p32["redesigned"]["value_mo"]["device_ms"] * 1e6
                     / p32["redesigned"]["value_mo"]["points"])
     c64, c32, slaunches, mlaunches, ours_sj = casci_phases(t_start, card, counters, per_point_64)
-    opt = optimization_phases(t_start, card, counters, tk / NSTEPS)
+    opt = optimization_phases(t_start, card, counters, tk / TIMED_NSTEPS)
     c3 = config3_phases(t_start, card, counters, opt)
     tw = twist_phases(t_start, card, counters, pconfigs)
+    obs = observables_phases(t_start, card, counters, pconfigs)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -3097,6 +3656,13 @@ def main():
                 entry[f"casci_{shape}_max_abs_err"] = c["max_abs_err"]
                 entry[f"casci_{shape}_max_abs_err_float64"] = c64[shape]["max_abs_err"]
         kernels.append(entry)
+    # the observables and the excited states (phases 27-30), each kernel's
+    # launches on each of their paths
+    for entry in kernels:
+        entry.update({f"launches_phase{k}": v[entry["name"]] for k, v in obs.items()
+                      if k != "k3_errors"})
+        if entry["name"] == "value_mo":
+            entry["observables_k3_against_plain"] = obs["k3_errors"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,21 @@ float32 orbital values run on K3.
 
     mol, wf, params, configs, acc = h2o_casci_j3_setup(nconf=2048)
 
+`h2o_excited_setup`: two states of the same H2O for method/sample_many.py
+and method/ensemble.py: state 0 h2o_setup's Slater-Jastrow, state 1 the
+Slater of the up electron moved from the HOMO (MO 3) to the LUMO (MO 4)
+times the same Jastrow; and, for optimize_ensemble, state 0 with the
+two-determinant superposition of the ground and excited determinants
+(det_coeff (0.5, 0.8)) times the Jastrow, of which only det_coeff is
+optimized (the construction of the JAX package's tests/integration/
+test_ensemble.py). The excited determinant is outside the gates of K1 and
+K2, so its ECP energy is the flat chain, its orbital values on K3.
+
+    mol, wfs, params_list, configs, acc, ens = h2o_excited_setup(nconf=2048)
+    data, configs = sample_overlap(wfs, params_list, configs, energy_acc=acc["energy"])
+    params_list, records = optimize_ensemble(**ens, configs=configs,
+                                             energy_acc=acc["energy"])
+
 `diamond_setup` (counterpart of benchmarks/c_solid_benchmark.py:123-154,
 the TRIM branch): the 2x2x2 supercell of ccECP diamond-C, 16 atoms and 64
 valence electrons, k-point Slater (8 TRIM k-points x 4 occupied orbitals
@@ -137,6 +152,42 @@ def h2o_casci_j3_setup(nconf, device=None, dtype=None, seed=0, params_path=H2O_J
     configs = initial_guess(mol, nconf, generator=torch.Generator().manual_seed(seed),
                             device=device, dtype=dtype)
     return mol, wf, params, configs, {"energy": EnergyAccumulator(mol)}
+
+
+EXCITED_DET_COEFF = (0.5, 0.8)  # the superposition's (ground, excited) coefficients
+
+
+def h2o_excited_setup(nconf, device=None, dtype=None, seed=0, path=H2O_CCECP):
+    """(mol, (wf0, wf1), (params0, params1), configs, accumulators,
+    ensemble) of the two H2O states (module docstring), ensemble being the
+    keyword arguments wfs, params_list and transforms of optimize_ensemble
+    (state 0 frozen, the superposition's det_coeff optimized). Device,
+    dtype and walkers as in h2o_setup."""
+    from .observables.transform import LinearTransform
+
+    device = resolve_device(device)
+    dtype = dtype or real_dtype(device)
+    mol, mf = load_npz(path)
+    nup, ndn = mol.nelec
+    ca = mf.mo_coeff[0][:, :nup + 1]
+    ground, one = list(range(nup)), np.zeros(1, dtype=np.int64)
+    excited = ground[:-1] + [nup]
+    wf0 = MultiplyWF(Slater.from_mean_field(mf), JastrowSpin(mol))
+    wf1 = MultiplyWF(Slater(mol, None, DeterminantExpansion(
+        occ_up=np.array([excited]), occ_dn=np.array([ground]), map_up=one, map_dn=one),
+        (ca, ca)), JastrowSpin(mol))
+    mix = MultiplyWF(Slater(mol, None, DeterminantExpansion(
+        occ_up=np.array([ground, excited]), occ_dn=np.array([ground]),
+        map_up=np.array([0, 1]), map_dn=np.array([0, 0])), (ca, ca),
+        det_coeff=np.array(EXCITED_DET_COEFF)), JastrowSpin(mol))
+    p0, p1, pmix = (w.make_params(device, dtype) for w in (wf0, wf1, mix))
+    to_opt = {"wf0": {"det_coeff": True, "mo_coeff_alpha": False, "mo_coeff_beta": False},
+              "wf1": {"acoeff": False, "bcoeff": False}}
+    ensemble = {"wfs": (wf0, mix), "params_list": (p0, pmix),
+                "transforms": (None, LinearTransform(pmix, to_opt))}
+    configs = initial_guess(mol, nconf, generator=torch.Generator().manual_seed(seed),
+                            device=device, dtype=dtype)
+    return mol, (wf0, wf1), (p0, p1), configs, {"energy": EnergyAccumulator(mol)}, ensemble
 
 
 def diamond_setup(nconf, device=None, dtype=None, seed=0, path=DIAMOND_PRIMITIVE):

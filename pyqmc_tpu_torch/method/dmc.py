@@ -23,13 +23,21 @@ torch.Generator, in one batch per kind (`draw_dmc_streams`):
         uniforms (observables/ecp.py:systematic_downselect);
   esel0 (nelec, nconf), those of the block's first energy.
 
-esel and esel0 are drawn last, and only where an ECP of the energy or of a
-further accumulator evaluates a subset of its points (a periodic solid),
-so other paths draw what they did before. They are the energy's selection
-stream and have nothing to do with the T-moves' u_sel: the T-move
-quadrature is always dense. A `streams` dict with those keys replaces the
-draws, so tests can feed the port and the JAX package the same numbers.
-The comb takes its one uniform, `u_branch`, as an argument.
+esel and esel0 are drawn only where the energy's ECP evaluates a subset of
+its points (a periodic solid). They are the energy's selection stream and
+have nothing to do with the T-moves' u_sel: the T-move quadrature is
+always dense. Last, where the block holds further accumulators:
+
+  draws {name: {key: (nsteps, ...)}}, each further accumulator's own
+        numbers, in the accumulators' order, as the JAX block gives each
+        its own key: for one with an ECP its rotations "rot" (nsteps,
+        nelec, nconf, 3, 3), and "u_sel" where that ECP downselects;
+        then, for one that draws its own (acc.draw), its draws.
+
+So a block without further accumulators draws what it drew before. A
+`streams` dict with those keys replaces the draws, so tests can feed the
+port and the JAX package the same numbers. The comb takes its one
+uniform, `u_branch`, as an argument.
 
 `rundmc` is the pipelined path of the JAX package's `rundmc`: propagation, population
 control and branching keep their state on the device, and a block's
@@ -54,7 +62,7 @@ from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, limdrift_umrigar, sweep_plain
 from ..ops.tmove_sweep import build_fused_tmove_sweep, tmove_sweep_plain
-from .vmc import downselects
+from .vmc import accumulator_draws, averages_to_host, downselects
 from .vmc import vmc as vmc_run
 
 __all__ = ["limdrift_umrigar", "compute_S", "branch", "draw_dmc_streams", "make_dmc_block",
@@ -88,9 +96,10 @@ def branch(positions, wrap, weights, u_branch):
 
 
 def draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, tmoves=True,
-                     downselect=False):
+                     downselect=False, accumulators=None):
     """One block's random numbers (see the module docstring); esel and
-    esel0 only with `downselect`."""
+    esel0 only with `downselect`, draws only for `accumulators` (the
+    further ones)."""
     gdev = generator.device
 
     def normal(*shape):
@@ -115,7 +124,27 @@ def draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, tmov
     if downselect:
         streams["esel"] = uniform(nsteps, nelec, nconf).to(device)
         streams["esel0"] = uniform(nelec, nconf).to(device)
+    draws = {}
+    for name, a in (accumulators or {}).items():
+        d = {}
+        if _ecp_of(a) is not None:
+            d["rot"] = rotations(nsteps, nelec, nconf)
+            if downselects({name: a}):
+                d["u_sel"] = uniform(nsteps, nelec, nconf).to(device)
+        d.update(accumulator_draws({name: a}, generator, nsteps, nconf, device, dtype).get(name, {}))
+        if d:
+            draws[name] = d
+    if draws:
+        streams["draws"] = draws
     return streams
+
+
+def _ecp_of(acc):
+    """The ECP an accumulator evaluates (its own ecp_acc, or itself for an
+    ECPAccumulator), or None."""
+    from ..observables.ecp import ECPAccumulator
+
+    return acc if isinstance(acc, ECPAccumulator) else getattr(acc, "ecp_acc", None)
 
 
 def _weighted_mean(x, w):
@@ -129,10 +158,11 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
 
     block(params, positions, wrap, weights, generator, e_trial, e_est,
           esigma, streams=None) -> (positions, wrap, weights, averages):
-    nsteps propagation steps; averages are 0-d tensors on the walkers'
+    nsteps propagation steps; averages are tensors on the walkers'
     device, weight-averaged over walkers and averaged over steps:
     "acceptance", "weight", "energy{key}" and f"{name}{key}" for every
-    further accumulator.
+    further accumulator (0-d, or arrays for a density matrix), each of
+    which reads its own streams (the module docstring).
 
     tdamp=None uses each walker's effective-time-step ratio
     r2_accepted / r2_proposed; a float fixes it. tmoves=False leaves the
@@ -156,7 +186,7 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
         if tmove is None:
             tmove = functools.partial(tmove_sweep_plain, wf, geometry, ecp_acc, tstep)
     orbitals = contextlib.nullcontext if fused else plain_orbitals
-    downselect = downselects({"energy": energy_acc, **accumulators})
+    downselect = downselects({"energy": energy_acc})
 
     def block(params, positions, wrap, weights, generator, e_trial, e_est, esigma,
               streams=None):
@@ -168,8 +198,10 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
         nconf = positions.shape[0]
         if streams is None:
             streams = draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, positions.device,
-                                       positions.dtype, tmoves=do_tmoves, downselect=downselect)
+                                       positions.dtype, tmoves=do_tmoves, downselect=downselect,
+                                       accumulators=accumulators)
         esel = streams.get("esel")
+        draws = streams.get("draws", {})
         state = wf.recompute(params, positions)
         edat0 = energy_acc(wf, params, state, positions, streams["erot0"], streams.get("esel0"))
         S_old = compute_S(e_trial, e_est, esigma, edat0["total"], edat0["grad2"], tstep, nelec)
@@ -193,8 +225,11 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
             for k, v in edat.items():
                 out[f"energy{k}"] = _weighted_mean(v, weights)
             for name, a in accumulators.items():
-                # weight-averaged mixed estimator
-                for k, v in a(wf, params, state, positions, streams["erot"][step], u_sel).items():
+                # weight-averaged mixed estimator, on the accumulator's own streams
+                own = {k: v[step] for k, v in draws.get(name, {}).items()}
+                rot, a_sel = own.pop("rot", None), own.pop("u_sel", None)
+                kw = {"draws": own} if hasattr(a, "draw") else {}
+                for k, v in a(wf, params, state, positions, rot, a_sel, **kw).items():
                     out[f"{name}{k}"] = _weighted_mean(v, weights)
             out["weight"] = torch.mean(weights)
             records.append(out)
@@ -228,7 +263,8 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
            feedback: float = 1.0, warmup_vmc_blocks: int = 5, branchtime: int = 1,
            ewin: int = 25, pipeline_depth: int = 4):
     """Run DMC where `configs` live; returns (list of per-block dicts of
-    floats, final Configs, final weights).
+    floats, numpy arrays for array-valued averages, final Configs, final
+    weights).
 
     A VMC warm-up of `warmup_vmc_blocks` blocks (10 steps, tstep 0.5)
     equilibrates the walkers; the local energies after it give the first
@@ -276,9 +312,7 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
     last_flush = [None]
 
     def finish(avg_dev, b, t0):
-        keys = sorted(avg_dev)
-        values = torch.stack([avg_dev[k].to(dtype) for k in keys]).cpu().tolist()
-        avg = dict(zip(keys, values))
+        avg = averages_to_host(avg_dev, dtype)
         now = time.perf_counter()
         avg["block time"] = now - (last_flush[0] if last_flush[0] is not None else t0)
         last_flush[0] = now

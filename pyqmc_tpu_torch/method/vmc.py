@@ -15,6 +15,12 @@ torch.Generator, in one batch per kind:
         last and only where an accumulator's ECP evaluates a subset of its
         points (a periodic solid), so other paths draw what they did before.
 
+  draws {name: {key: (nsteps, ...)}}, the random numbers of each
+        accumulator that draws its own (one with a `draw` method: the
+        auxiliary points of the density matrices), drawn after the others,
+        in the accumulators' order, and only for such accumulators, so a
+        block without one draws what it drew before.
+
 A `streams` dict with those keys replaces the draws, so tests can feed the
 port and the JAX package the same numbers. The checkpoint file and restart
 of the JAX driver need h5py and are not ported yet.
@@ -54,6 +60,42 @@ def draw_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, downsele
     return streams
 
 
+def accumulator_draws(accumulators, generator, nsteps, nconf, device, dtype):
+    """{name: acc.draw(...)} of the accumulators that draw random numbers of
+    their own, in their order (observables/accumulators.py)."""
+    return {name: a.draw(generator, nsteps, nconf, device, dtype)
+            for name, a in accumulators.items() if hasattr(a, "draw")}
+
+
+def step_draws(draws, name, step):
+    """The keyword arguments of accumulator `name` at `step`: its draws of
+    that step, or none for an accumulator that draws nothing."""
+    if name not in draws:
+        return {}
+    return {"draws": {k: v[step] for k, v in draws[name].items()}}
+
+
+def averages_to_host(avg, dtype):
+    """Device averages -> {key: float (0-d) or numpy array}, in one copy to
+    the host of all the real ones (flattened and concatenated); complex ones
+    (the overlap matrix of complex wavefunctions) are copied apart."""
+    keys = sorted(k for k in avg if not avg[k].is_complex())
+    out = {}
+    if keys:
+        flat = torch.cat([avg[k].reshape(-1).to(dtype) for k in keys]).cpu().numpy()
+        off = 0
+        for k in keys:
+            shape = tuple(avg[k].shape)
+            n = int(np.prod(shape))
+            out[k] = float(flat[off]) if not shape else flat[off:off + n].reshape(shape).copy()
+            off += n
+    for k in avg:
+        if avg[k].is_complex():
+            v = avg[k].cpu().numpy()
+            out[k] = complex(v) if not v.shape else v
+    return out
+
+
 def downselects(accumulators):
     """Whether an accumulator's ECP evaluates a subset of its quadrature
     points, and so reads the u_sel stream."""
@@ -62,13 +104,15 @@ def downselects(accumulators):
 
 
 def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutoff=1.0,
-                   fused=True):
+                   fused=True, accumulate_every=1):
     """Returns block(params, positions, wrap, generator, streams=None)
     -> (positions, wrap, averages), averages being tensors on the walkers'
-    device, each the mean over the block's steps of one accumulator output
-    (0-d for a walker mean, (nparam,) or (nparam, nparam) for the SR
-    accumulator's): "acceptance" (per electron move) and f"{name}{key}"
-    for every accumulator output.
+    device: "acceptance" (per electron move), the mean over all steps, and
+    f"{name}{key}" for every accumulator output (0-d for a walker mean,
+    arrays for the SR accumulator's dp, dpidpj or a density matrix), the
+    mean over the steps with step % accumulate_every == 0, the only steps
+    whose accumulators run (the JAX block evaluates them at every step and
+    weights the others by zero). Every step's streams are drawn.
 
     fused=True takes the CUDA sweep kernel when the wavefunction passes its
     gate (its wrapper runs the plain sweep for CPU tensors): K1 for an open
@@ -85,6 +129,8 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
         sweep = functools.partial(sweep_plain, wf, geometry, tstep, drift_cutoff)
     orbitals = contextlib.nullcontext if fused else plain_orbitals
     downselect = downselects(accumulators)
+    if accumulate_every < 1:
+        raise ValueError(f"accumulate_every must be at least 1, got {accumulate_every}")
 
     def block(params, positions, wrap, generator, streams=None):
         with orbitals():
@@ -96,18 +142,29 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
         if streams is None:
             streams = draw_streams(generator, nsteps, nelec, nconf, tstep, positions.device,
                                    positions.dtype, downselect)
-        records = []
+            draws = accumulator_draws(accumulators, generator, nsteps, nconf, positions.device,
+                                      positions.dtype)
+            if draws:
+                streams["draws"] = draws
+        draws = streams.get("draws", {})
+        acceptance, records = [], []
         for step in range(nsteps):
             positions, wrap, state, acc = sweep(params, positions, wrap, state,
                                                 streams["gauss"][step], streams["unif"][step])
-            out = {"acceptance": acc / nelec}
+            acceptance.append(acc / nelec)
+            if step % accumulate_every:
+                continue
+            out = {}
             for name, a in accumulators.items():
                 u_sel = streams["u_sel"][step] if "u_sel" in streams else None
-                for k, v in a.avg(wf, params, state, positions, streams["rot"][step],
-                                  u_sel).items():
+                rot = streams["rot"][step] if "rot" in streams else None
+                for k, v in a.avg(wf, params, state, positions, rot, u_sel,
+                                  **step_draws(draws, name, step)).items():
                     out[name + k] = v
             records.append(out)
-        avg = {k: torch.mean(torch.stack([r[k] for r in records]), dim=0) for k in records[0]}
+        avg = {"acceptance": torch.mean(torch.stack(acceptance), dim=0)}
+        avg.update({k: torch.mean(torch.stack([r[k] for r in records]), dim=0)
+                    for k in records[0]})
         return positions, wrap, avg
 
     return block
@@ -115,10 +172,12 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
 
 def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int = 10,
         tstep: float = 0.5, accumulators: Optional[dict] = None,
-        generator: Optional[torch.Generator] = None, block_fn=None, verbose: bool = False):
+        generator: Optional[torch.Generator] = None, block_fn=None, verbose: bool = False,
+        accumulate_every: int = 1):
     """Run VMC; returns (list of per-block dicts, final Configs): a 0-d
     average becomes a float, an array-valued one (the SR accumulator's dp,
-    dpidpj, ...) a numpy array, as the JAX package's vmc returns them.
+    dpidpj, a density matrix, ...) a numpy array, as the JAX package's vmc
+    returns them. The accumulators run every `accumulate_every` steps.
 
     Blocks are pipelined: block b's averages are fetched (one copy to the
     host of all of them, flattened and concatenated) after block b+1 has
@@ -132,7 +191,7 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
     if block_fn is None:
         block_fn = make_vmc_block(wf, accumulators, configs.geometry, tstep=tstep,
-                                  nsteps=nsteps_per_block)
+                                  nsteps=nsteps_per_block, accumulate_every=accumulate_every)
     positions = configs.positions.clone()
     wrap = configs.wrap.clone()
     block_data = []
@@ -140,14 +199,7 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
 
     def flush(entry):
         b, avg_dev, seconds = entry
-        keys = sorted(avg_dev)
-        flat = torch.cat([avg_dev[k].reshape(-1) for k in keys]).cpu().numpy()
-        avg, off = {}, 0
-        for k in keys:
-            shape = tuple(avg_dev[k].shape)
-            n = int(np.prod(shape))
-            avg[k] = float(flat[off]) if not shape else flat[off:off + n].reshape(shape).copy()
-            off += n
+        avg = averages_to_host(avg_dev, configs.positions.dtype)
         avg["block"] = b
         avg["block time"] = seconds
         block_data.append(avg)

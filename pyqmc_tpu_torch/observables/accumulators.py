@@ -3,10 +3,21 @@ pyqmc_tpu/observables/accumulators.py): open-boundary Coulomb, or Ewald
 sums for a periodic cell.
 
 Protocol: acc(wf, params, state, positions, rot, u_sel=None) -> dict of
-per-walker tensors; acc.avg(...) -> dict of walker means (0-d tensors,
-still on the device). `rot` (nelec, nconf, 3, 3) are the step's ECP
-quadrature rotations and `u_sel` (nelec, nconf) its downselection uniforms
-(used where the ECP evaluates a subset of its quadrature points).
+per-walker tensors; acc.avg(...) -> dict of walker means (0-d tensors, or
+arrays for an array-valued output, still on the device). `rot` (nelec,
+nconf, 3, 3) are the step's ECP quadrature rotations and `u_sel` (nelec,
+nconf) its downselection uniforms (used where the ECP evaluates a subset of
+its quadrature points).
+
+An accumulator that needs random numbers of its own (the JAX accumulators
+draw them from their key: the auxiliary points of the density matrices)
+says so with a method draw(generator, nsteps, nconf, device, dtype) ->
+{key: tensor (nsteps, ...)}, the numbers of every step of a block, and
+takes one step's slice as the keyword `draws`: acc(wf, params, state,
+positions, rot=None, u_sel=None, draws=...). The blocks (method/vmc.py,
+method/dmc.py, method/sample_many.py) draw them once per block, after
+their own streams, and accept them in a `streams` dict, so a test can feed
+the JAX package's numbers.
 """
 
 import torch
