@@ -19,7 +19,10 @@ DMC with T-moves; and BASELINE config 5, the diamond supercell at a general
 twist (complex orbitals) with VMC and DMC with T-moves, and its two-twist
 average; and the observables (density matrices, S^2, S(q), symmetry) on
 H2O and the diamond, and the excited states of H2O (overlap sampling and
-the ensemble optimization).
+the ensemble optimization); and the front door: the molecular front end
+(basis and ECP library, integrals, SCF, CASCI) from a geometry string on
+the host, the recipes OPTIMIZE, VMC and DMC on the card from its SCF, and
+the He and H-atom anchors.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -76,7 +79,7 @@ the ensemble optimization).
      scatter of the blocks after the first (reblock_by2's first level)
      over the square root of the blocks it averages, the same for the
      earlier chain, so the combined one is sqrt(2) times it.
-  4. one 10-step VMC block with the kernels and one with the plain
+  4. one 5-step VMC block with the kernels and one with the plain
      versions, timed in turns (plain, kernel, kernel, plain)
   5. one kernel-path VMC block under torch.profiler: the device's busy
      time (the sum of its kernel and copy times), the launches per step,
@@ -130,12 +133,12 @@ the ensemble optimization).
      0.02 Ha) of the JAX package's CPU reference (tools/
      diamond_jax_reference.py) and the acceptance within 0.05 of its
      acceptance
-  10. one periodic 2-step block with the kernels and one with the plain
+  10. one periodic 1-step block with the kernels and one with the plain
      versions (make_vmc_block(fused=False): the plain sweep, the orbitals
      without K3 and K6), timed in turns,
      then one 10-step kernel block under torch.profiler as in phase 5
   11. the periodic DMC path through the entry points: diamond_setup(500)
-     on the default device + rundmc(), 5 blocks x 10 steps at tstep 0.02
+     on the default device + rundmc(), 3 blocks x 10 steps at tstep 0.02
      after 4 VMC warm-up blocks. Launch counts exactly: 40 K7-vmc (the
      warm-up), 10 K7-dmc per block, none of K1, K2, K4, K5 (the T-move
      sweep stays plain on a lattice, as in the JAX package), K6 and K3 as
@@ -146,12 +149,12 @@ the ensemble optimization).
      weights rise while e_trial lags the energy's fall from the warm-up
      VMC's, beyond 2 in the JAX package's runs on this schedule, so the
      fixed window (0.5, 2) of phase 6 would reject the reference itself);
-     acceptance above 0.9; the energy per primitive cell of the last 3
+     acceptance above 0.9; the energy per primitive cell of the last 2
      blocks within max(5 x combined SEM, 0.02 Ha) of the JAX package's CPU
      reference on the same schedule (tools/diamond_dmc_jax_reference.py)
      and not above the warm-up VMC energy per cell by more than 0.02 Ha
   12. the T-move sweep of one step alone (CUDA events), then one periodic
-     2-step DMC block with the plain versions (make_dmc_block(fused=False))
+     1-step DMC block with the plain versions (make_dmc_block(fused=False))
      and one with the kernels, timed in turns, then a 1-step kernel block
      under torch.profiler as in phase 5 (the profiler's read-back of a
      10-step block's 1.4 million device events took minutes)
@@ -164,14 +167,14 @@ the ensemble optimization).
      the plain version's, the bound (`value_mo_bound`) and the device ns
      per point beside the diamond's (phase 8)
   14. the CASCI anchor: h2o_casci_setup(jastrow=False), the bare
-     multi-determinant Slater, + vmc(), 7 blocks x 50 steps; launch counts
+     multi-determinant Slater, + vmc(), 5 blocks x 50 steps; launch counts
      exactly 50 K3 per block (one per energy: the plain ECP chain's flat
      ratio call) and none of the others; the mean of the blocks after the
      first 2 within 5 x max(SEM, 1e-3) of E_CASCI (the reference's
      criterion, tests/integration/test_casci.py) and more than 3 SEM below
      E_HF, so that a port keeping only the leading determinant fails
   15. multi-Slater-Jastrow VMC: h2o_casci_setup (default device) + vmc(),
-     6 blocks x 50 steps, 50 K3 per block and nothing else; the mean of the
+     4 blocks x 50 steps, 50 K3 per block and nothing else; the mean of the
      blocks after the first 2 within max(5 x combined SEM, 0.005 Ha) of the
      JAX package's CPU reference on the same schedule
      (tools/h2o_casci_jax_reference.py) and the acceptance within 0.05 of
@@ -184,12 +187,12 @@ the ensemble optimization).
      energies (before the mean) with K3 against plain orbitals on one set of
      rotations, to 1e-4 of each walker's energy plus the largest one's
      magnitude
-  16. multi-Slater-Jastrow DMC: rundmc() from phase 15's walkers, 4 blocks
+  16. multi-Slater-Jastrow DMC: rundmc() from phase 15's walkers, 2 blocks
      x 10 steps at tstep 0.02 with T-moves after 2 VMC warm-up blocks;
      launch counts exactly: K3 once per energy and once per electron per
      T-move sweep, none of K1, K2, K4, K5 (their gates take the determinant
      of the first n orbitals only); block mean weights in (0.5, 2),
-     acceptance above 0.9, the energy of the last 3 blocks in (-17.6,
+     acceptance above 0.9, the energy of the 2 blocks in (-17.6,
      -16.9) Ha and at most 0.05 Ha above the warm-up VMC's; then one
      kernel-path block timed, the T-move and drift-diffusion sweeps alone,
      and a 1-step block under torch.profiler
@@ -239,12 +242,12 @@ the ensemble optimization).
      walkers; line_minimization for 6 iterations of 5 x 10 SR steps (a third
      factor is outside the K1/K2 gates: plain sweep and ECP chain, K3 once
      per energy, exactly 57 per iteration); each iteration's energy, |g|,
-     SR step and launches; then 4 x 50 VMC steps (200 K3): every energy
+     SR step and launches; then 3 x 25 VMC steps (75 K3): every energy
      finite, the mean of the blocks after the first no higher than phase
      17's by 3 combined SEM and within J3_OPT_BOUND of the JAX CPU
      reference on the same schedule (tools/h2o_j3_jax_reference.py opt)
   21. BASELINE config 3 VMC: h2o_casci_j3_setup (the CASCI expansion x the
-     two- and three-body Jastrow on the committed coefficients) + vmc(), 6
+     two- and three-body Jastrow on the committed coefficients) + vmc(), 4
      x 50 steps, exactly 50 K3 per block and nothing else; the mean of the
      blocks after the first within 3 combined SEM of the JAX CPU reference
      at the same coefficients (tools/h2o_j3_jax_reference.py vmc); a
@@ -256,7 +259,7 @@ the ensemble optimization).
      sweep, kinetic energy, ECP ratios and recompute; the per-walker ECP
      energies with K3 against plain orbitals as in phase 15
   22. config 3 DMC: rundmc() from phase 21's walkers, 2 VMC warm-up blocks
-     and 4 x 10 steps at tstep 0.02 with T-moves; K3 exactly once per
+     and 2 x 10 steps at tstep 0.02 with T-moves; K3 exactly once per
      energy and once per electron per T-move sweep (91 per block), none of
      the others; phase 16's windows; the T-move and drift-diffusion sweeps
      alone
@@ -284,11 +287,11 @@ the ensemble optimization).
      alone and the largest condition number of the orbital matrices along
      one sweep
   25. general-twist DMC with T-moves: rundmc() from phase 24's walkers (VMC
-     equilibrated, so no warm-up) and 3 x 10 steps at tstep 0.02; launch counts
+     equilibrated, so no warm-up) and 2 x 10 steps at tstep 0.02; launch counts
      exactly (K6 and K3 per energy, K3 once per electron per T-move sweep,
      no sweep kernel); each block's weight within a factor of 2 of the
      weight its e_trial and energy predict (phase 11's window), acceptance
-     above 0.9; the energy per cell of the last 2 blocks within max(5 x
+     above 0.9; the energy per cell of both blocks within max(5 x
      combined SEM, 0.02 Ha) of the JAX CPU reference on the same DMC
      schedule (tools/diamond_twist_jax_reference.py dmc) and not above the
      warm-up VMC's by more than 0.02 Ha
@@ -337,7 +340,7 @@ the ensemble optimization).
      (64 x 32^4 entries) with K3 against plain
   30. the excited states: h2o_excited_setup (state 0 phase 3's
      Slater-Jastrow, state 1 the up electron moved from MO 3 to MO 4):
-     sample_overlap, 4 x 10 steps with the energy and an adapted S^2 (the
+     sample_overlap, 3 x 10 steps with the energy and an adapted S^2 (the
      plain two-state sweep; K2 for state 0's energy, K3 for state 1's ECP
      chain and every S^2 testvalue, exactly); the blocks after the first:
      normalized |O01| below 0.1, E1 above E0 + 0.1 Ha, E0, E1 and each
@@ -347,11 +350,47 @@ the ensemble optimization).
      K3 against plain; the sweep alone and a traced 2-step block (idle
      share); then optimize_ensemble (state 0 frozen, the superposition of
      the ground and excited determinants with det_coeff (0.5, 0.8), its
-     det_coeff optimized; penalty 4, tau 0.3, 4 iterations of 2 x 10
+     det_coeff optimized; penalty 4, tau 0.3, 2 iterations of 2 x 10
      steps): launches exactly, every record finite, each iteration's |O01|
      and E1 within max(5 x combined SEM, 0.05) of the reference's, the
      ground determinant's share printed after every iteration and below
      0.580 after the last (the JAX test's bound)
+
+  31. the front end on the host, from the geometry string of
+     __graft_entry__._h2o_setup: Molecule(..., basis="ccecp-ccpvdz",
+     ecp="ccecp") from the port's own basis and ECP library, its shell
+     table and ECP equal to the committed checkpoint's (system/io.load_npz:
+     23 AOs, exponents and coefficients to 1e-12 relative); the integrals,
+     ecp_matrix and run_scf: e_tot within 1e-5 Ha of the checkpoint's and
+     1e-8 of the JAX package's own SCF (tools/recipes_jax_reference.py
+     scf); run_casci(mf, 8, (4, 4)) at the committed expansion's tol: E_CASCI
+     within 1e-5 Ha of the committed one and the same determinant set; the
+     SCF of He/STO-3G, H2/STO-3G at 1.4 bohr, H2O/STO-3G and the H atom in
+     cc-pVDZ (UHF) within 1e-5 Ha of the JAX package's. The host seconds
+     of each step are printed.
+  32. the recipes on the card from phase 31's SCF (2048 walkers):
+     OPTIMIZE(mf=mf, max_iterations=5) (per iteration exactly 100 K1 and
+     107 K2, the first also OPTIMIZE's 40 equilibration K1), VMC(params=)
+     8 x 25 steps from new walkers (200 K1, 200 K2), the mean of the blocks
+     after the first 2 within 5 x sqrt(SEM^2 + the reference's SEM^2 + the
+     spread of its runs^2) (at least 0.005 Ha) of the JAX CPU reference on
+     the same schedule (tools/recipes_jax_reference.py), DMC(params=,
+     tstep=0.02) 2 warm-up + 6 x 10 steps (launches as phase 6; weights in
+     (0.5, 2), acceptance above 0.9, the last 3 blocks in (-17.6, -16.9) Ha
+     and not above the warm-up VMC by more than 0.05 Ha; the JAX reference
+     printed); then the bare CASCI expansion of phase 31 through
+     generate_wf(mol, mf, jastrow=False, mc=...) from the VMC's walkers, 4
+     x 20 steps (exactly one K3 per energy, nothing else), the mean of the
+     blocks after the first within 5 x max(SEM, 1e-3) of phase 31's E_CASCI
+     (phase 14's window); last README's quick start through the port's api
+     (all-electron H2O/STO-3G: OPTIMIZE(nconfig=1000), VMC(nconfig=2000),
+     depth cut): K1 only, exactly, and a finite VMC energy below the SCF's
+  33. the anchors: He/STO-3G Slater VMC (generate_wf(jastrow=False), 400
+     walkers, 12 x 20 steps, K1 only) within 5 SEM of its SCF energy; DMC of
+     the H atom in cc-pVDZ (the JAX package's recipe test system, 200
+     walkers, 2 warm-up + 30 x 10 steps at tstep 0.02; its empty down-spin
+     channel runs the plain sweeps, so no kernel launches) within 5 SEM of
+     -0.5 Ha
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -371,7 +410,7 @@ NSTEPS = 50
 TSTEP = 0.5
 DMC_TSTEP = 0.02
 DMC_NSTEPS = 10
-TIMED_NSTEPS = 10  # phases 4-5: the VMC blocks timed in turns and traced
+TIMED_NSTEPS = 5  # phases 4-5: the VMC blocks timed in turns and traced
 DMC_NBLOCKS = 6
 DMC_WARMUP = 5
 TMOVE_BIG_TAU = 0.5
@@ -385,17 +424,17 @@ DIAMOND_REF = {"e_cell": -10.182775221948061, "sem": 0.007186578622671951,
                "acceptance": 0.6213392469618056}  # 128 walkers, 36 x 10 steps after 4 blocks
 PBC_DMC_BIG_TSTEP = 0.5
 DIAMOND_DMC_WARMUP = 4  # rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
-DIAMOND_DMC_NBLOCKS = 5
-DIAMOND_DMC_NLAST = 3  # blocks averaged for the energy check
+DIAMOND_DMC_NBLOCKS = 3
+DIAMOND_DMC_NLAST = 2  # blocks averaged for the energy check
 PBC_TRACE_NSTEPS = 1  # phases 12 and 16's traced blocks (141,000 device events a step)
-PBC_TIMED_NSTEPS = 2  # phases 10 and 12: the kernel and plain blocks timed in turns
-# tools/diamond_dmc_jax_reference.py 32 6 5 4 3 3 on the CPU, float64, the
-# same schedule: 6 runs of 32 walkers, E/cell of the last 3 blocks, its
+PBC_TIMED_NSTEPS = 1  # phases 10 and 12: the kernel and plain blocks timed in turns
+# tools/diamond_dmc_jax_reference.py 32 6 3 4 2 3 on the CPU, float64, the
+# same schedule: 6 runs of 32 walkers, E/cell of the last 2 blocks, its
 # standard error over the runs, and each block's mean weight (geometric
 # mean over the runs; printed, not checked) (see PERF.md)
-DIAMOND_DMC_REF = {"e_cell": -10.910391419065506, "sem": 0.04079764409454735,
-                   "e_vmc_cell": -10.153945381096266, "acceptance": 0.9872368706597223,
-                   "weights": [1.4012, 2.8029, 4.4290, 5.6434, 6.4479]}
+DIAMOND_DMC_REF = {"e_cell": -10.849104116988757, "sem": 0.04185739879635224,
+                   "e_vmc_cell": -10.153945381096266, "acceptance": 0.987060546875,
+                   "weights": [1.4012265906093078, 2.8029435387316846, 4.428962071153185]}
 # H2O energies (phase 3: E of the last 2 VMC blocks; phase 6: E of the last
 # 3 DMC blocks). With the one-thread-per-walker K1, K4 and K5 the float32
 # chains gave these bits on every card; the lane-group kernels sum in other
@@ -409,12 +448,12 @@ H2O_VMC_E = -16.987946
 H2O_DMC_E = -17.221626
 BLOCK_CHECK_NCONF = 512  # walkers of phase 2's float64 blocks (a power of 2: exact means)
 # the multi-determinant path (phases 13-16): h2o_casci_setup, 2048 walkers
-CASCI_NBLOCKS = 7  # phase 14: 50-step VMC blocks of the bare CASCI expansion
+CASCI_NBLOCKS = 5  # phase 14: 50-step VMC blocks of the bare CASCI expansion
 CASCI_NWARM = 2  # blocks dropped before a mean (phases 14 and 15)
-CASCI_SJ_NBLOCKS = 6  # phase 15: 50-step multi-Slater-Jastrow VMC blocks
+CASCI_SJ_NBLOCKS = 4  # phase 15: 50-step multi-Slater-Jastrow VMC blocks
 CASCI_DMC_WARMUP = 2  # phase 16: rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
-CASCI_DMC_NBLOCKS = 4
-CASCI_DMC_NLAST = 3
+CASCI_DMC_NBLOCKS = 2
+CASCI_DMC_NLAST = 2
 CASCI_CHECK_NSTEPS = 5  # phase 15's K3 and plain-orbital blocks on one set of streams
 CASCI_TRACE_NSTEPS = 3  # phase 15's traced block (the profiler's events of a
 # 50-step block take minutes to read back)
@@ -446,16 +485,16 @@ CUSP32_RTOL = 1e-4  # phase 19: float32 against float64, relative to the largest
 J3_NPARAMS = 276  # phase 20: 33 two-body + 243 three-body (ccoeff) coefficients
 J3_ITERATIONS = 6  # phase 20: line_minimization iterations of J3_SR_BLOCKS x 10 SR steps
 J3_SR_BLOCKS = 5
-J3_VMC_BLOCKS = 4  # 50-step VMC blocks with the optimized J2 x J3, the first dropped
+J3_VMC_BLOCKS, J3_VMC_NSTEPS = 3, 25  # VMC blocks with the optimized J2 x J3, the first dropped
 J3_OPT_BOUND = 0.01  # Ha: phase 20's VMC against J3_OPT_REF (PERF.md, set before the first run)
 # tools/h2o_j3_jax_reference.py opt 2048 2 61 on the CPU, float64, phases 17 and
 # 20's schedules: 2 runs of 2048 walkers, the mean of their optimized VMC
 # energies and its standard error over the runs (see PERF.md)
 J3_OPT_REF = {"e": -17.19870129539305, "sem": 0.0007760304331529966}
-CONFIG3_NBLOCKS = 6  # phase 21: 50-step VMC blocks, the first dropped
+CONFIG3_NBLOCKS = 4  # phase 21: 50-step VMC blocks, the first dropped
 CONFIG3_CHECK_NCONF, CONFIG3_CHECK_NSTEPS = 512, 3  # phase 21's K3 against plain block
 CONFIG3_TRACE_NSTEPS = 3
-CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 4, 3  # phase 22, as phase 16
+CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 2, 2  # phase 22, as phase 16
 # tools/h2o_j3_jax_reference.py vmc 256 8 71 on the CPU, float64, phase 21's
 # schedule at the committed coefficients: 8 runs of 256 walkers (see PERF.md)
 CONFIG3_REF = {"e": -17.193638541019272, "sem": 0.0011872010833002958,
@@ -466,17 +505,17 @@ TWIST_NBLOCKS = 3  # phase 24: 10-step VMC blocks from phase 9's walkers, the fi
 TWIST_NSKIP = 1
 TWIST_TRACE_NSTEPS = 1  # phase 24's traced block
 # phase 25, from phase 24's equilibrated VMC walkers, so without a VMC warm-up
-TWIST_DMC_WARMUP, TWIST_DMC_NBLOCKS, TWIST_DMC_NLAST = 0, 3, 2
+TWIST_DMC_WARMUP, TWIST_DMC_NBLOCKS, TWIST_DMC_NLAST = 0, 2, 2
 TWIST_AVG_NBLOCKS = 3  # phase 26: 10-step blocks per twist, averaged after max(1, 3 // 4)
 # tools/diamond_twist_jax_reference.py on the CPU, float64 (see PERF.md): vmc 64 4 8 4 3
 # (4 runs of 64 walkers, 8 blocks kept after 4), phase 24's energy per cell
 TWIST_VMC_REF = {"e_cell": -10.181446452474983, "sem": 0.008945233221813065,
                  "acceptance": 0.6205337524414062}
-# dmc 32 6 3 4 2 3: 6 runs of 32 walkers, 4 VMC warm-up blocks, 3 DMC blocks, E/cell of the
-# last 2 and its standard error over the runs, each block's weight (geometric mean)
-TWIST_DMC_REF = {"e_cell": -10.880689830492036, "sem": 0.0704185173711307,
-                 "e_vmc_cell": -10.254492971456186, "acceptance": 0.9879435221354167,
-                 "weights": [1.1971367375551287, 2.088208568112148, 3.6877087312715977]}
+# dmc 32 6 2 4 2 3: 6 runs of 32 walkers, 4 VMC warm-up blocks, 2 DMC blocks, E/cell of
+# both and its standard error over the runs, each block's weight (geometric mean)
+TWIST_DMC_REF = {"e_cell": -10.687292935344358, "sem": 0.05079940139022643,
+                 "e_vmc_cell": -10.254492971456186, "acceptance": 0.9875610351562499,
+                 "weights": [1.1971367375551287, 2.088208568112148]}
 # average 64 4 8 4 3: per twist (the TRIM one, the general one; sorted as
 # twist_average_vmc runs them) 4 runs of 64 walkers, 8 blocks after 4 of
 # equilibration, averaged by twist_average_vmc's rule
@@ -494,8 +533,9 @@ OBS_K3_RTOL = 1e-3  # the new K3 uses against plain_orbitals(), float32, per wal
 OBS_DMC_WARMUP, OBS_DMC_NBLOCKS, OBS_DMC_NLAST = 2, 4, 3  # phase 28
 PBC_OBS_NBLOCKS = 3  # phase 29: 10-step VMC blocks from phase 9's walkers
 KTBDM_NCONF = 64  # phase 29's one KTBDM evaluation
-EXC_NBLOCKS, EXC_NSKIP = 4, 1  # phase 30's sample_overlap, 10-step blocks
-ENS_ITERATIONS, ENS_NBLOCKS, ENS_PENALTY, ENS_TAU = 4, 2, 4.0, 0.3  # phase 30's optimize_ensemble
+EXC_NBLOCKS, EXC_NSKIP = 3, 1  # phase 30's sample_overlap, 10-step blocks
+# phase 30's optimize_ensemble; the first ENS_ITERATIONS of the reference's 4 iterations
+ENS_ITERATIONS, ENS_NBLOCKS, ENS_PENALTY, ENS_TAU = 2, 2, 4.0, 0.3
 ENS_FRAC0_BOUND = 0.5 / float(np.hypot(0.5, 0.8)) + 0.05  # the JAX test's bound, 0.580
 # tools/observables_jax_reference.py on the CPU, float64, each schedule of its
 # phase; each entry (mean over the runs, standard error over the runs' means)
@@ -529,6 +569,33 @@ EXC_REF = {"e0": (-16.97963223, 0.00715419), "e1": (-16.58830466, 0.00856158), "
     ([0.53989845, 0.21298853, 0.04828623, 0.0430098], [0.00422022, 0.0161845, 0.01192906,
     0.01036828]), "ens_e1": ([-16.75456327, -16.62073176, -16.60701541, -16.54743905], [0.0290876,
     0.027128, 0.02678173, 0.02074364]), "ens_frac0": ([0.05709011], [0.00941567])}
+# the front door (phases 31-33): the molecular front end from a geometry string, the
+# recipes and the anchors; the geometry of __graft_entry__._h2o_setup, bohr
+H2O_ATOM = "O 0 0 0.2217; H 0 1.4309 -0.8867; H 0 -1.4309 -0.8867"
+FRONT_END_TOL = 1e-5  # Ha: the SCF and CASCI against the committed checkpoint, the SCF pins
+SCF_SYSTEMS = {"he_sto3g": ("He 0 0 0", dict(basis="sto-3g")),
+               "h2_sto3g": ("H 0 0 0; H 0 0 1.4", dict(basis="sto-3g")),
+               "h2o_sto3g": (H2O_ATOM, dict(basis="sto-3g")),
+               "h_ccpvdz_uhf": ("H 0 0 0", dict(basis="ccpvdz", spin=1))}
+# tools/recipes_jax_reference.py scf: the JAX package's run_scf of these systems and of
+# the ccECP H2O, float64
+SCF_PINS = {"he_sto3g": -2.8077839575399755, "h2_sto3g": -1.116714325062571,
+            "h2o_sto3g": -74.96302780172712, "h_ccpvdz_uhf": -0.49927840341958324,
+            "h2o_ccecp": -16.92653440946893}
+RECIPE_SEED = 13
+RECIPE_OPT_ITERATIONS = 5  # phase 32: OPTIMIZE's line_minimization iterations (its defaults)
+RECIPE_VMC_NBLOCKS, RECIPE_VMC_NSTEPS, RECIPE_VMC_NSKIP = 8, 25, 2  # VMC(params=), new walkers
+RECIPE_DMC_NBLOCKS, RECIPE_DMC_WARMUP, RECIPE_DMC_NLAST = 6, 2, 3  # DMC(params=), 10-step blocks
+# tools/recipes_jax_reference.py 2048 4 5 13 1 on the CPU, float64, phase 32's schedule:
+# 4 runs of 2048 walkers (seeds 13, 23, 33, 43); the mean of their VMC energies, its
+# standard error and the spread (standard deviation) of the runs' means (see PERF.md)
+RECIPE_REF = {"e_vmc": -17.1804199808164, "sem_vmc": 0.0014426636818832778,
+              "spread_vmc": 0.0028853273637665555, "e_dmc": -17.22220302494739,
+              "sem_dmc": 0.003022346136309868, "spread_dmc": 0.006044692272619736}
+CASCI_FD_NBLOCKS, CASCI_FD_NSTEPS, CASCI_FD_NSKIP = 4, 20, 1  # phase 32's CASCI VMC
+QUICK_OPT_ITERATIONS, QUICK_SR_BLOCKS, QUICK_VMC_NBLOCKS = 2, 2, 4  # the quick start, cut
+HE_NCONF, HE_NBLOCKS, HE_NSTEPS, HE_NSKIP = 400, 12, 20, 2  # phase 33's He VMC
+H_NCONF, H_DMC_WARMUP, H_NBLOCKS, H_NSKIP = 200, 2, 30, 4  # phase 33's H-atom DMC
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -2131,7 +2198,8 @@ def config3_phases(t_start, card, counters, opt):
     check(dx > 0, "the optimization left the parameters where they were")
     reset_counts()
     t0 = time.perf_counter()
-    vblocks, vconfigs = vmc(wf, params, oconfigs, nblocks=J3_VMC_BLOCKS, nsteps_per_block=NSTEPS,
+    vblocks, vconfigs = vmc(wf, params, oconfigs, nblocks=J3_VMC_BLOCKS,
+                            nsteps_per_block=J3_VMC_NSTEPS,
                             tstep=TSTEP, accumulators={"energy": energy}, generator=gen)
     torch.cuda.synchronize()
     t_vmc = time.perf_counter() - t0
@@ -2142,7 +2210,7 @@ def config3_phases(t_start, card, counters, opt):
               f"host time {b['block time']:.3f} s", flush=True)
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
               f"non-finite energies in three-body VMC block {b['block']}")
-    check(vlaunches == {**none, "value_mo": J3_VMC_BLOCKS * NSTEPS},
+    check(vlaunches == {**none, "value_mo": J3_VMC_BLOCKS * J3_VMC_NSTEPS},
           f"kernel launches of the three-body VMC: {vlaunches}")
     e_v = np.array([b["energytotal"] for b in vblocks[1:]])
     m_v, sem_v = float(np.mean(e_v)), float(np.std(e_v, ddof=1) / np.sqrt(len(e_v)))
@@ -3120,6 +3188,319 @@ def observables_phases(t_start, card, counters, gamma_configs):
     return out
 
 
+
+def same_tree(a, b, rtol=1e-12):
+    """The same nesting of lists and dicts, numbers within rtol."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k], rtol) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same_tree(x, y, rtol) for x, y in zip(a, b))
+    return bool(np.isclose(float(a), float(b), rtol=rtol, atol=0.0))
+
+
+def determinant_set(exp):
+    return {(tuple(int(o) for o in exp["occ_up"][u]), tuple(int(o) for o in exp["occ_dn"][d]))
+            for u, d in zip(exp["map_up"], exp["map_dn"])}
+
+
+def front_door_phases(t_start, card, counters):
+    """Phases 31-33, the front door: the molecular front end on the host
+    from a geometry string, the recipes on the card from its SCF, and the He
+    and H anchors. Returns the launch counts of each run."""
+    from pyqmc_tpu_torch.api import (DMC, OPTIMIZE, VMC, Molecule, generate_wf, initial_guess,
+                                     run_casci, run_scf)
+    from pyqmc_tpu_torch.method.vmc import vmc
+    from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
+    from pyqmc_tpu_torch.system import integrals
+    from pyqmc_tpu_torch.system.ecp_integrals import ecp_matrix
+    from pyqmc_tpu_torch.system.io import load_expansion_npz, load_npz
+
+    none = {k: 0 for k in counters}
+    out = {}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    def host(label, fn, seconds):
+        t0 = time.perf_counter()
+        r = fn()
+        seconds[label] = round(time.perf_counter() - t0, 3)
+        return r
+
+    print(f"phase 31 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 31: the front end on the host, from the geometry string
+    sec = {}
+    mol = host("Molecule", lambda: Molecule(H2O_ATOM, basis="ccecp-ccpvdz", ecp="ccecp"), sec)
+    ref_mol, ref_mf = load_npz()
+    check(mol.nao == ref_mol.nao == 23 and mol.nelec == ref_mol.nelec == (4, 4),
+          f"nao {mol.nao}, nelec {mol.nelec} against the checkpoint's {ref_mol.nao}, "
+          f"{ref_mol.nelec}")
+    check(np.array_equal(mol.atom_charges, ref_mol.atom_charges)
+          and np.allclose(mol.atom_coords, ref_mol.atom_coords, rtol=0, atol=1e-12),
+          "atom charges or coordinates differ from the checkpoint's")
+    for a, b in zip(mol.shells, ref_mol.shells):
+        check((a.atom, a.l, a.ao_offset) == (b.atom, b.l, b.ao_offset)
+              and same_tree(list(a.exps), list(b.exps)) and same_tree(list(a.coeffs),
+                                                                      list(b.coeffs)),
+              f"shell {a} differs from the checkpoint's {b}")
+    check(same_tree(mol.ecp, ref_mol.ecp), "the ccECP library differs from the checkpoint's ECP")
+    cache = {}
+    S, T = host("overlap and kinetic", lambda: integrals.overlap_kinetic(mol), sec)
+    V = host("nuclear", lambda: integrals.nuclear(mol), sec)
+    ERI = host("ERI", lambda: integrals.eri(mol), sec)
+    host("ecp_matrix", lambda: ecp_matrix(mol), sec)
+    cache.update(S=S, T=T, V=V, ERI=ERI)
+    mf = host("run_scf (integrals cached, ecp_matrix rebuilt)",
+              lambda: run_scf(mol, integrals_cache=cache), sec)
+    check(mf.converged and abs(mf.e_tot - ref_mf.e_tot) <= FRONT_END_TOL,
+          f"SCF e_tot {mf.e_tot} off the checkpoint's {ref_mf.e_tot} by more than "
+          f"{FRONT_END_TOL}")
+    check(abs(mf.e_tot - SCF_PINS["h2o_ccecp"]) <= 1e-8,
+          f"SCF e_tot {mf.e_tot} off the JAX package's {SCF_PINS['h2o_ccecp']}")
+    cas = load_expansion_npz()
+    energies, roots = host("run_casci(8e, 8o)", lambda: run_casci(
+        mf, cas["ncas"], cas["nelecas"], tol=cas["tol"]), sec)
+    exp, coeff = roots[0]
+    mine = determinant_set({"occ_up": exp.occ_up, "occ_dn": exp.occ_dn, "map_up": exp.map_up,
+                            "map_dn": exp.map_dn})
+    theirs = determinant_set(cas)
+    check(abs(energies[0] - cas["e_casci"]) <= FRONT_END_TOL,
+          f"E_CASCI {energies[0]} off the committed {cas['e_casci']} by more than "
+          f"{FRONT_END_TOL}")
+    check(mine == theirs, f"the CASCI determinant set differs from the committed one: "
+          f"{len(mine ^ theirs)} determinants in one set only")
+    # the coefficients' magnitudes (an MO's sign may differ from the checkpoint's)
+    ref_c = {(tuple(cas["occ_up"][u]), tuple(cas["occ_dn"][d])): c
+             for u, d, c in zip(cas["map_up"], cas["map_dn"], cas["det_coeff"])}
+    dc = max(abs(abs(c) - abs(ref_c[(tuple(exp.occ_up[u]), tuple(exp.occ_dn[d]))]))
+             for u, d, c in zip(exp.map_up, exp.map_dn, coeff))
+    pins = {}
+    for name, (atom, kw) in SCF_SYSTEMS.items():
+        e = host(f"run_scf {name}", lambda: run_scf(Molecule(atom, **kw)).e_tot, sec)
+        pins[name] = e
+        check(abs(e - SCF_PINS[name]) <= FRONT_END_TOL,
+              f"{name} SCF {e} off the JAX package's {SCF_PINS[name]} by more than "
+              f"{FRONT_END_TOL}")
+    print(f"phase 31: SCF e_tot {mf.e_tot:.9f} (checkpoint {ref_mf.e_tot:.9f}, "
+          f"{abs(mf.e_tot - ref_mf.e_tot):.2e} away; the JAX package {SCF_PINS['h2o_ccecp']:.9f}); "
+          f"E_CASCI {energies[0]:.9f} (committed {cas['e_casci']:.9f}, "
+          f"{abs(energies[0] - cas['e_casci']):.2e} away), {len(coeff)} determinants, the "
+          f"committed set, largest ||c| - |c_ref|| {dc:.2e}; SCF pins "
+          f"{json.dumps({k: round(v, 9) for k, v in pins.items()})} (the JAX package's "
+          f"{json.dumps(SCF_PINS)}); host seconds {json.dumps(sec)}", flush=True)
+    out["phase31_seconds"] = sec
+
+    print(f"phase 32 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 32: the recipes on the card from phase 31's SCF
+    per_it, last = [], {"n": none}
+
+    def per_iteration(record, info):
+        now = read_counts()
+        per_it.append({k: now[k] - last["n"][k] for k in now})
+        last["n"] = now
+
+    reset_counts()
+    t0 = time.perf_counter()
+    wf, params, records = OPTIMIZE(mol, mf=mf, nconfig=NCONF, max_iterations=RECIPE_OPT_ITERATIONS,
+                                   seed=RECIPE_SEED, callback=per_iteration)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    for r, n in zip(records, per_it):
+        print(f"phase 32 OPTIMIZE iteration {r['iteration']}: E={r['energy']:.6f} "
+              f"+- {r['energy_err']:.6f} |g|={r['gnorm']:.4f} tau={r['tau']} launches "
+              f"{json.dumps(n)}", flush=True)
+        check(np.isfinite(r["energy"]) and np.isfinite(r["gnorm"]),
+              f"non-finite OPTIMIZE record {r}")
+    # per iteration 10 x 10 SR steps (K1, K2) and the correlated energies of
+    # the reference and the 6 step lengths (K2); the first iteration also
+    # holds OPTIMIZE's 4 x 10 equilibration steps (K1)
+    for i, n in enumerate(per_it):
+        want = {**none, "vmc_sweep": 100 + (OPT_EQUIL_BLOCKS * 10 if i == 0 else 0),
+                "ecp_energy": 107}
+        check(n == want, f"OPTIMIZE iteration {i} launched {n}, expected {want}")
+    check(len(records) == RECIPE_OPT_ITERATIONS, f"{len(records)} OPTIMIZE records")
+    out["phase32_optimize"] = read_counts()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    vblocks, vconfigs = VMC(mol, mf=mf, params=params, nconfig=NCONF, nblocks=RECIPE_VMC_NBLOCKS,
+                            nsteps_per_block=RECIPE_VMC_NSTEPS, seed=RECIPE_SEED)
+    torch.cuda.synchronize()
+    t_vmc = time.perf_counter() - t0
+    vl = read_counts()
+    nv = RECIPE_VMC_NBLOCKS * RECIPE_VMC_NSTEPS
+    check(vl == {**none, "vmc_sweep": nv, "ecp_energy": nv}, f"the VMC recipe launched {vl}")
+    out["phase32_vmc"] = vl
+    ev = np.array([b["energytotal"] for b in vblocks])
+    check(bool(np.all(np.isfinite(ev))), f"non-finite VMC recipe energies {ev}")
+    kept = ev[RECIPE_VMC_NSKIP:]
+    e_vmc, sem_vmc = float(np.mean(kept)), float(np.std(kept, ddof=1) / np.sqrt(len(kept)))
+    ref = RECIPE_REF
+    window = max(5 * float(np.sqrt(sem_vmc**2 + ref["sem_vmc"]**2 + ref["spread_vmc"]**2)),
+                 0.005)
+    print(f"phase 32 VMC blocks {np.round(ev, 6).tolist()}, acceptance "
+          f"{[round(b['acceptance'], 4) for b in vblocks]}", flush=True)
+    print(f"phase 32: OPTIMIZE {RECIPE_OPT_ITERATIONS} iterations {t_opt:.2f} s, last E "
+          f"{records[-1]['energy']:.6f}; VMC(params=) E(blocks after {RECIPE_VMC_NSKIP})="
+          f"{e_vmc:.6f} +- {sem_vmc:.6f} Ha in {t_vmc:.2f} s; the JAX CPU reference "
+          f"{ref['e_vmc']:.6f} +- {ref['sem_vmc']:.6f} (spread of its runs {ref['spread_vmc']:.6f}),"
+          f" window {window:.6f} Ha, {abs(e_vmc - ref['e_vmc']) / window * 5:.2f} x the "
+          f"combined SEM and spread away; launches {json.dumps(vl)}", flush=True)
+    check(abs(e_vmc - ref["e_vmc"]) <= window,
+          f"the VMC recipe's {e_vmc} off the JAX reference {ref['e_vmc']} by more than {window}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    dblocks, dconfigs, weights = DMC(mol, mf=mf, params=params, nconfig=NCONF,
+                                     nblocks=RECIPE_DMC_NBLOCKS, nsteps_per_block=DMC_NSTEPS,
+                                     tstep=DMC_TSTEP, warmup_vmc_blocks=RECIPE_DMC_WARMUP,
+                                     seed=RECIPE_SEED)
+    torch.cuda.synchronize()
+    t_dmc = time.perf_counter() - t0
+    dl = read_counts()
+    nwarm = RECIPE_DMC_WARMUP * 10
+    dwant = {**none, "vmc_sweep": nwarm, "dmc_sweep": RECIPE_DMC_NBLOCKS * DMC_NSTEPS,
+             "tmove_sweep": RECIPE_DMC_NBLOCKS * DMC_NSTEPS,
+             "ecp_energy": nwarm + 1 + RECIPE_DMC_NBLOCKS * (DMC_NSTEPS + 1)}
+    check(dl == dwant, f"the DMC recipe launched {dl}, expected {dwant}")
+    out["phase32_dmc"] = dl
+    for b in dblocks:
+        check(all(np.isfinite(v) for v in b.values()), f"non-finite value in DMC block {b}")
+        check(0.5 < b["weight"] < 2.0, f"block mean weight {b['weight']} outside (0.5, 2)")
+        check(b["acceptance"] > 0.9, f"DMC acceptance {b['acceptance']} not above 0.9")
+    check(bool(torch.all(torch.isfinite(weights))) and bool(torch.all(weights > 0)),
+          "final DMC weights are not finite and positive")
+    ed = np.array([b["energytotal"] for b in dblocks])
+    e_dmc = float(np.mean(ed[-RECIPE_DMC_NLAST:]))
+    e_warm = 2 * dblocks[0]["e_est"] - dblocks[0]["energytotal"]
+    # one run's mean of 3 blocks: the spread of the reference's runs stands in
+    # for its standard error
+    dwindow = max(5 * float(np.hypot(ref["sem_dmc"], ref["spread_dmc"])), 0.02)
+    print(f"phase 32: DMC(params=, tstep {DMC_TSTEP}) blocks {np.round(ed, 6).tolist()}, weights "
+          f"{[round(b['weight'], 4) for b in dblocks]}; E(last {RECIPE_DMC_NLAST})={e_dmc:.6f} Ha "
+          f"(the JAX CPU reference {ref['e_dmc']:.6f} +- {ref['sem_dmc']:.6f}, spread "
+          f"{ref['spread_dmc']:.6f}; window {dwindow:.6f}), warm-up VMC {e_warm:.6f}, "
+          f"{t_dmc:.2f} s; launches "
+          f"{json.dumps(dl)}", flush=True)
+    check(-17.6 < e_dmc < -16.9, f"DMC recipe energy {e_dmc} outside (-17.6, -16.9) Ha")
+    check(abs(e_dmc - ref["e_dmc"]) <= dwindow,
+          f"the DMC recipe's {e_dmc} off the JAX reference {ref['e_dmc']} by more than {dwindow}")
+    check(e_dmc < e_warm + 0.05, f"DMC recipe energy {e_dmc} above its warm-up VMC {e_warm}")
+
+    # the bare CASCI expansion of phase 31 through generate_wf(mc=), from the
+    # VMC recipe's walkers
+    cwf, cparams, _ = generate_wf(mol, mf, jastrow=False, mc=roots[0])
+    cacc = {"energy": EnergyAccumulator(mol)}
+    reset_counts()
+    t0 = time.perf_counter()
+    cblocks, _ = vmc(cwf, cparams, vconfigs, nblocks=CASCI_FD_NBLOCKS,
+                     nsteps_per_block=CASCI_FD_NSTEPS, tstep=TSTEP, accumulators=cacc,
+                     generator=torch.Generator(device=vconfigs.positions.device).manual_seed(
+                         RECIPE_SEED + 5))
+    torch.cuda.synchronize()
+    t_cas = time.perf_counter() - t0
+    cl = read_counts()
+    # one K3 launch per energy (the plain ECP chain's flat ratio call)
+    check(cl == {**none, "value_mo": CASCI_FD_NBLOCKS * CASCI_FD_NSTEPS},
+          f"the CASCI VMC launched {cl}")
+    out["phase32_casci_vmc"] = cl
+    ec = np.array([b["energytotal"] for b in cblocks])
+    check(bool(np.all(np.isfinite(ec))), f"non-finite CASCI VMC energies {ec}")
+    kc = ec[CASCI_FD_NSKIP:]
+    m_cas, sem_cas = float(np.mean(kc)), float(np.std(kc, ddof=1) / np.sqrt(len(kc)))
+    print(f"phase 32: CASCI VMC (generate_wf(mc=run_casci root), jastrow=False) blocks "
+          f"{np.round(ec, 6).tolist()}; E(blocks after {CASCI_FD_NSKIP})={m_cas:.6f} +- "
+          f"{sem_cas:.6f} Ha against E_CASCI {energies[0]:.6f}, "
+          f"{abs(m_cas - energies[0]) / max(sem_cas, 1e-3):.2f} x max(SEM, 1e-3) away; "
+          f"{t_cas:.2f} s; launches {json.dumps(cl)}", flush=True)
+    check(abs(m_cas - energies[0]) <= 5 * max(sem_cas, 1e-3),
+          f"CASCI VMC energy {m_cas} +- {sem_cas} off E_CASCI {energies[0]} by more than "
+          f"5 x max(SEM, 1e-3)")
+
+    # README's quick start through the port's api: all-electron H2O/STO-3G
+    reset_counts()
+    t0 = time.perf_counter()
+    qmol = Molecule(H2O_ATOM, basis="sto-3g")
+    _, qparams, qrecords = OPTIMIZE(qmol, nconfig=1000, max_iterations=QUICK_OPT_ITERATIONS,
+                                    vmc_blocks=QUICK_SR_BLOCKS)
+    qblocks, _ = VMC(qmol, params=qparams, nconfig=2000, nblocks=QUICK_VMC_NBLOCKS)
+    torch.cuda.synchronize()
+    t_quick = time.perf_counter() - t0
+    ql = read_counts()
+    qwant = {**none, "vmc_sweep": OPT_EQUIL_BLOCKS * 10
+             + QUICK_OPT_ITERATIONS * QUICK_SR_BLOCKS * 10 + QUICK_VMC_NBLOCKS * 10}
+    check(ql == qwant, f"the quick start launched {ql}, expected {qwant}")
+    out["phase32_quick_start"] = ql
+    eq = np.array([b["energytotal"] for b in qblocks])
+    e_quick = float(np.mean(eq[1:]))
+    print(f"phase 32: quick start (H2O/STO-3G, OPTIMIZE nconfig 1000 x {QUICK_OPT_ITERATIONS} "
+          f"iterations of {QUICK_SR_BLOCKS} x 10 SR steps, VMC nconfig 2000 x "
+          f"{QUICK_VMC_NBLOCKS} x 10 steps): iterations "
+          f"{[round(r['energy'], 6) for r in qrecords]}, VMC blocks {np.round(eq, 6).tolist()}, "
+          f"E(blocks after the first)={e_quick:.6f} Ha against the SCF's "
+          f"{SCF_PINS['h2o_sto3g']:.6f}; {t_quick:.2f} s with both SCFs; launches "
+          f"{json.dumps(ql)}", flush=True)
+    check(bool(np.all(np.isfinite(eq))) and e_quick < SCF_PINS["h2o_sto3g"],
+          f"the quick start's VMC energy {e_quick} is not finite and below the SCF's")
+
+    print(f"phase 33 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 33: the anchors. He/STO-3G Slater VMC equals its SCF energy
+    he = Molecule("He 0 0 0", basis="sto-3g")
+    he_mf = run_scf(he)
+    hwf, hparams, _ = generate_wf(he, he_mf, jastrow=False)
+    hconfigs = initial_guess(he, HE_NCONF, generator=torch.Generator().manual_seed(RECIPE_SEED))
+    reset_counts()
+    t0 = time.perf_counter()
+    hblocks, _ = vmc(hwf, hparams, hconfigs, nblocks=HE_NBLOCKS, nsteps_per_block=HE_NSTEPS,
+                     tstep=TSTEP, accumulators={"energy": EnergyAccumulator(he)},
+                     generator=torch.Generator(device=hconfigs.positions.device).manual_seed(
+                         RECIPE_SEED + 6))
+    torch.cuda.synchronize()
+    t_he = time.perf_counter() - t0
+    hl = read_counts()
+    check(hl == {**none, "vmc_sweep": HE_NBLOCKS * HE_NSTEPS}, f"the He VMC launched {hl}")
+    out["phase33_he_vmc"] = hl
+    eh = np.array([b["energytotal"] for b in hblocks])[HE_NSKIP:]
+    m_he, sem_he = float(np.mean(eh)), float(np.std(eh, ddof=1) / np.sqrt(len(eh)))
+    print(f"phase 33: He/STO-3G Slater VMC ({HE_NCONF} walkers, {HE_NBLOCKS} x {HE_NSTEPS} steps,"
+          f" the first {HE_NSKIP} blocks dropped) E={m_he:.6f} +- {sem_he:.6f} Ha against its "
+          f"SCF {he_mf.e_tot:.6f}, {abs(m_he - he_mf.e_tot) / sem_he:.2f} SEM away; {t_he:.2f} s; "
+          f"launches {json.dumps(hl)}", flush=True)
+    check(abs(m_he - he_mf.e_tot) <= 5 * sem_he,
+          f"He VMC {m_he} +- {sem_he} off its SCF {he_mf.e_tot} by more than 5 SEM")
+
+    # DMC of the H atom (an empty down-spin channel: the plain sweeps)
+    reset_counts()
+    t0 = time.perf_counter()
+    hd, _, hw = DMC(Molecule("H 0 0 0", basis="ccpvdz", spin=1), nconfig=H_NCONF,
+                    nblocks=H_NBLOCKS, nsteps_per_block=DMC_NSTEPS,
+                    warmup_vmc_blocks=H_DMC_WARMUP, seed=RECIPE_SEED)
+    torch.cuda.synchronize()
+    t_h = time.perf_counter() - t0
+    hdl = read_counts()
+    check(hdl == none, f"the H-atom DMC launched {hdl}: its empty spin channel must run plain")
+    out["phase33_h_dmc"] = hdl
+    eH = np.array([b["energytotal"] for b in hd])
+    check(bool(np.all(np.isfinite(eH))) and bool(torch.all(torch.isfinite(hw))),
+          "non-finite H-atom DMC energies or weights")
+    kH = eH[H_NSKIP:]
+    m_h, sem_h = float(np.mean(kH)), float(np.std(kH, ddof=1) / np.sqrt(len(kH)))
+    print(f"phase 33: H-atom DMC ({H_NCONF} walkers, {H_DMC_WARMUP} warm-up + {H_NBLOCKS} x "
+          f"{DMC_NSTEPS} steps at tstep {DMC_TSTEP}, the first {H_NSKIP} blocks dropped) "
+          f"E={m_h:.6f} +- {sem_h:.6f} Ha, {abs(m_h + 0.5) / sem_h:.2f} SEM from -0.5; weights "
+          f"{[round(b['weight'], 4) for b in hd]}; {t_h:.2f} s; launches {json.dumps(hdl)}",
+          flush=True)
+    check(abs(m_h + 0.5) <= 5 * sem_h, f"H-atom DMC {m_h} +- {sem_h} off -0.5 by more than 5 SEM")
+    print(f"phases 31-33 end at {time.perf_counter() - t_start:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0: the card (and the package: nothing is printed without both)
@@ -3539,6 +3920,7 @@ def main():
     c3 = config3_phases(t_start, card, counters, opt)
     tw = twist_phases(t_start, card, counters, pconfigs)
     obs = observables_phases(t_start, card, counters, pconfigs)
+    fd = front_door_phases(t_start, card, counters)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def device_ms(ours, *names):
@@ -3663,6 +4045,9 @@ def main():
                       if k != "k3_errors"})
         if entry["name"] == "value_mo":
             entry["observables_k3_against_plain"] = obs["k3_errors"]
+        # the front door (phases 32-33): each recipe run's launches
+        entry.update({f"launches_{k}": v[entry["name"]] for k, v in fd.items()
+                      if k != "phase31_seconds"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,8 +22,9 @@ import os
 
 import numpy as np
 
-from ..ops.harmonics import normalize_contraction
-from .mole import Cell, MeanField, Molecule, Shell
+from .basis import Shell
+from .mole import Cell, Molecule
+from .scf import MeanField
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 H2O_CCECP = os.path.join(DATA_DIR, "h2o_ccecp-ccpvdz_ccecp_scf.npz")
@@ -79,26 +80,6 @@ def basis_from_json(text: str):
     }
 
 
-def basis_from_pyscf_json(text: str):
-    """{element: [Shell]} from pyscf-format JSON, per element a list of
-    [l, [exp, c1, c2, ...], ...]; every coefficient column becomes a shell,
-    normalised as pyscf does (system/basis.py:parse_pyscf_basis)."""
-    out = {}
-    for el, entries in json.loads(text).items():
-        shells = []
-        for entry in entries:
-            l = int(entry[0])
-            prims = np.asarray(entry[1:], dtype=np.float64)
-            for col in range(1, prims.shape[1]):
-                keep = prims[:, col] != 0.0
-                if np.any(keep):
-                    c = normalize_contraction(l, prims[keep, 0], prims[keep, col])
-                    shells.append(Shell(l=l, exps=tuple(float(e) for e in prims[keep, 0]),
-                                        coeffs=tuple(float(x) for x in c)))
-        out[el] = shells
-    return out
-
-
 def load_cell_npz(path: str = DIAMOND_PRIMITIVE):
     """(Cell, {"kpts" (nk, 3), "mo_coeff" (nk, nao, nmo) complex, "mo_occ"
     (nk, nmo), "e_tot"}) from a periodic `.npz` (keys basis_json, ecp_json,
@@ -107,9 +88,10 @@ def load_cell_npz(path: str = DIAMOND_PRIMITIVE):
     with np.load(path, allow_pickle=False) as z:
         d = {k: z[k] for k in z.files}
     ecp = json.loads(bytes(d["ecp_json"]).decode())
-    cell = Cell([s.decode() if isinstance(s, bytes) else str(s) for s in d["atom_symbols"]],
-                d["atom_coords"], basis_from_pyscf_json(bytes(d["basis_json"]).decode()),
-                d["lattice"], ecp=ecp or None, spin=int(d["spin"]))
+    symbols = [s.decode() if isinstance(s, bytes) else str(s) for s in d["atom_symbols"]]
+    cell = Cell(list(zip(symbols, d["atom_coords"])), d["lattice"],
+                basis=json.loads(bytes(d["basis_json"]).decode()), ecp=ecp or None,
+                spin=int(d["spin"]))
     return cell, {"kpts": d["kpts"], "mo_coeff": d["mo_coeff"], "mo_occ": d["mo_occ"],
                   "e_tot": float(d["e_tot"])}
 
@@ -132,7 +114,7 @@ def load_npz(path: str = H2O_CCECP):
     with np.load(path, allow_pickle=False) as z:
         d = {k: z[k] for k in _SYSTEM_KEYS + _SCF_KEYS}
     mol = Molecule(
-        [str(s) for s in d["atom_symbols"]], d["atom_coords"],
+        list(zip([str(s) for s in d["atom_symbols"]], d["atom_coords"])),
         basis=basis_from_json(str(d["basis_json"])),
         ecp=json.loads(str(d["ecp_json"])) or None,
         charge=int(d["charge"]), spin=int(d["spin"]),

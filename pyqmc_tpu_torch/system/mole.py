@@ -1,12 +1,14 @@
 """Molecule and periodic cell records (counterpart of
 pyqmc_tpu/system/mole.py).
 
-Numpy only. The port has no basis library and no SCF: a molecule is built
-from an explicit, already normalised basis, as `system/io.py` reads it from
-a checkpoint. The shell table follows `Molecule._build_shell_table` of the
-JAX package exactly (atoms in order, each atom's shells in basis order,
-`2l+1` spherical AOs per shell), because the AO order fixes the meaning of
-every row of `mo_coeff`.
+Numpy only. `Molecule(atom, basis="sto-3g", charge, spin, ecp, unit)`
+takes the JAX signature: a "O 0 0 0; H ..." string or a list of (symbol,
+xyz), a basis and an ECP by library name or as a dict (system/basis.py's
+`get_basis`, `get_ecp`), coordinates in bohr unless unit="angstrom". The
+shell table follows `Molecule._build_shell_table` of the JAX package
+exactly (atoms in order, each atom's shells in basis order, `2l+1`
+spherical AOs per shell), because the AO order fixes the meaning of every
+row of `mo_coeff`.
 """
 
 from __future__ import annotations
@@ -16,29 +18,29 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-# Atomic numbers through Kr (pyqmc_tpu/system/elements.py).
-SYMBOLS = [
-    "X", "H", "He", "Li", "Be", "B", "C", "N", "O", "F", "Ne",
-    "Na", "Mg", "Al", "Si", "P", "S", "Cl", "Ar",
-    "K", "Ca", "Sc", "Ti", "V", "Cr", "Mn", "Fe", "Co", "Ni", "Cu", "Zn",
-    "Ga", "Ge", "As", "Se", "Br", "Kr",
-]
-_CHARGE = {s: i for i, s in enumerate(SYMBOLS)}
+from . import basis as basis_mod
+from .basis import Shell  # noqa: F401  (system.mole.Shell, as in the JAX package)
+from .elements import atomic_number
+from .scf import MeanField  # noqa: F401  (the JAX package keeps it in system/scf.py)
+
+BOHR_PER_ANGSTROM = 1.0 / 0.529177210903
 
 
-def atomic_number(symbol: str) -> int:
-    s = symbol.strip()
-    s = s[0].upper() + s[1:].lower() if len(s) > 1 else s.upper()
-    return _CHARGE[s]
-
-
-@dataclasses.dataclass(frozen=True)
-class Shell:
-    """One contracted shell of an element's basis (normalised coefficients)."""
-
-    l: int
-    exps: Tuple[float, ...]
-    coeffs: Tuple[float, ...]
+def _parse_atoms(atom) -> Tuple[List[str], np.ndarray]:
+    """Accept 'O 0 0 0; H 0 0 1' strings or [('O', (x,y,z)), ...] lists."""
+    if isinstance(atom, str):
+        entries = []
+        for tok in atom.replace("\n", ";").split(";"):
+            tok = tok.strip()
+            if not tok:
+                continue
+            parts = tok.split()
+            entries.append((parts[0], [float(x) for x in parts[1:4]]))
+    else:
+        entries = [(a[0], list(np.asarray(a[1], dtype=float))) for a in atom]
+    symbols = [e[0] for e in entries]
+    coords = np.array([e[1] for e in entries], dtype=np.float64).reshape(-1, 3)
+    return symbols, coords
 
 
 @dataclasses.dataclass
@@ -55,22 +57,26 @@ class ShellRef:
 class Molecule:
     """Open-boundary molecular system.
 
-    atom_symbols: list of element symbols; atom_coords: (natom, 3) bohr;
-    basis: {element: [Shell, ...]}; ecp: pyscf-format
+    atom: "O 0 0 0; H 0 0 1" or [(symbol, (x, y, z)), ...]; basis: a
+    built-in name or {element: pyscf-format list or [Shell, ...]}; ecp: a
+    library name ("ccecp", "tpu1"), {element: pyscf-format ECP or library
+    name}, or None; unit "bohr" or "angstrom". mol.ecp is pyscf-format
     {element: [ncore, [[l, [slots r^0..r^6]], ...]]} or {}.
     """
 
-    def __init__(self, atom_symbols, atom_coords, basis: Dict[str, List[Shell]],
-                 ecp: Optional[dict] = None, charge: int = 0, spin: Optional[int] = None):
-        self.atom_symbols = list(atom_symbols)
-        self.atom_coords = np.asarray(atom_coords, dtype=np.float64).reshape(-1, 3)
-        self.basis = basis
-        self.ecp = ecp or {}
+    def __init__(self, atom, basis="sto-3g", charge: int = 0, spin: Optional[int] = None,
+                 ecp=None, unit: str = "bohr"):
+        self.atom_symbols, coords = _parse_atoms(atom)
+        if unit.lower().startswith("a"):
+            coords = coords * BOHR_PER_ANGSTROM
+        self.atom_coords = coords
+        elements = sorted(set(self.atom_symbols))
+        self.basis: Dict[str, List[Shell]] = basis_mod.get_basis(basis, elements)
+        self.ecp = basis_mod.get_ecp(ecp, elements) if ecp else {}
+        # effective charges: Z minus ECP core electrons
         z = np.array([atomic_number(s) for s in self.atom_symbols], dtype=np.int64)
-        ncore = np.array(
-            [self.ecp[s][0] if s in self.ecp else 0 for s in self.atom_symbols],
-            dtype=np.int64,
-        )
+        ncore = np.array([self.ecp[s][0] if s in self.ecp else 0 for s in self.atom_symbols],
+                         dtype=np.int64)
         self.atom_charges = z - ncore
         nelec_tot = int(self.atom_charges.sum()) - charge
         if spin is None:
@@ -108,22 +114,18 @@ class Molecule:
         return float(e)
 
 
-@dataclasses.dataclass
-class MeanField:
-    """The slice of an SCF solution that QMC needs (system/scf.py MeanField)."""
-
-    mol: Molecule
-    mo_coeff: Tuple[np.ndarray, np.ndarray]  # per spin (nao, nmo)
-    mo_energy: Tuple[np.ndarray, np.ndarray]
-    mo_occ: Tuple[np.ndarray, np.ndarray]
-    e_tot: float
-    restricted: bool
-
-
 class Cell(Molecule):
     """Periodic system: a molecule plus a lattice (rows are the lattice
-    vectors, bohr)."""
+    vectors, bohr); the keywords are Molecule's."""
 
-    def __init__(self, atom_symbols, atom_coords, basis, lattice, ecp=None, charge=0, spin=None):
-        super().__init__(atom_symbols, atom_coords, basis, ecp=ecp, charge=charge, spin=spin)
+    def __init__(self, atom, lattice, **kwargs):
+        super().__init__(atom, **kwargs)
         self.lattice = np.asarray(lattice, dtype=np.float64)
+
+    @property
+    def volume(self):
+        return float(abs(np.linalg.det(self.lattice)))
+
+    def reciprocal(self):
+        """Reciprocal lattice vectors as rows: b = 2 pi inv(a)^T."""
+        return 2.0 * np.pi * np.linalg.inv(self.lattice).T

@@ -31,19 +31,27 @@ def get_supercell(cell: Cell, S) -> Cell:
     """Replicate a primitive Cell into the supercell defined by S."""
     S = np.asarray(S, dtype=int)
     trans = primitive_translations(S) @ cell.lattice  # cartesian shifts
-    symbols, coords = [], []
-    for t in trans:
-        for sym, coord in zip(cell.atom_symbols, cell.atom_coords):
-            symbols.append(sym)
-            coords.append(np.asarray(coord) + t)
-    sup = Cell(symbols, np.asarray(coords), {el: cell.basis[el] for el in set(cell.atom_symbols)},
-               S @ cell.lattice,
+    atoms = [(sym, np.asarray(coord) + t) for t in trans
+             for sym, coord in zip(cell.atom_symbols, cell.atom_coords)]
+    sup = Cell(atoms, S @ cell.lattice,
+               basis={el: cell.basis[el] for el in set(cell.atom_symbols)},
                ecp={el: cell.ecp[el] for el in cell.ecp} if cell.ecp else None,
                spin=cell.spin * len(trans))
     sup.original_cell = cell
     sup.S = S
     sup.scale = len(trans)
     return sup
+
+
+def get_supercell_kpts(supercell, primitive_kpts, twist=None, tol=1e-8):
+    """Primitive k-points compatible with a supercell twist (fractional
+    coordinates in the supercell's Brillouin zone, default 0): (indices into
+    primitive_kpts, the twist in cartesian coordinates)."""
+    recip_s = 2 * np.pi * np.linalg.inv(supercell.lattice).T  # rows
+    twist_cart = np.zeros(3) @ recip_s if twist is None else np.asarray(twist) @ recip_s
+    frac = (np.asarray(primitive_kpts) - twist_cart) @ supercell.lattice.T / (2 * np.pi)
+    is_int = np.all(np.abs(frac - np.round(frac)) < tol, axis=1)
+    return np.nonzero(is_int)[0], twist_cart
 
 
 def create_supercell_twists(supercell, primitive_kpts, tol=1e-8):

@@ -38,17 +38,21 @@ def default_jastrow_basis(mol, na=4, nb=3, rcut=None):
     return a_basis, b_basis
 
 
-def generate_slater(mol, mf, mc=None):
+def generate_slater(mol, mf, mc=None, tol: float = 1e-8):
     """The Slater part from an SCF: the single determinant of the lowest
-    orbitals, or with mc = (DeterminantExpansion, det_coeff) a
-    multi-determinant expansion over the orbitals it occupies."""
+    orbitals, or a multi-determinant expansion over the orbitals it
+    occupies. mc: a (DeterminantExpansion, det_coeff) pair (such as a root
+    of system/casci.run_casci or run_hci), or any CASCI/HCI/SCI-style object
+    that system/ci_import.interpret_ci accepts, its determinants cut at
+    |c| <= tol."""
     if mc is None:
         return Slater.from_mean_field(mf)
-    if not (isinstance(mc, tuple) and len(mc) == 2):
-        raise NotImplementedError(
-            "a CI object other than an (expansion, det_coeff) pair needs interpret_ci "
-            "(ROADMAP queue 1 item 8), which is not ported")
-    exp, coeff = mc
+    if isinstance(mc, tuple) and len(mc) == 2:
+        exp, coeff = mc
+    else:
+        from .system.ci_import import interpret_ci
+
+        exp, coeff = interpret_ci(mc, tol)
     norb_up = int(exp.occ_up.max()) + 1 if exp.occ_up.size else 0
     norb_dn = int(exp.occ_dn.max()) + 1 if exp.occ_dn.size else 0
     ca = np.asarray(mf.mo_coeff[0])[:, :norb_up]

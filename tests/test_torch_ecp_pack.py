@@ -51,7 +51,8 @@ def _nmax16():
     from pyqmc_tpu_torch.system.mole import Molecule
 
     mol, mf = load_npz()
-    mol = Molecule(mol.atom_symbols, mol.atom_coords, mol.basis, ecp=mol.ecp, charge=-2, spin=2)
+    mol = Molecule(list(zip(mol.atom_symbols, mol.atom_coords)), basis=mol.basis, ecp=mol.ecp,
+                   charge=-2, spin=2)
     wf = MultiplyWF(Slater(mol, None, DeterminantExpansion.single(6, 4),
                            (mf.mo_coeff[0][:, :6], mf.mo_coeff[1][:, :4])), JastrowSpin(mol))
     fn = ecp_energy.build_fused_ecp_energy(wf, ECPAccumulator(mol))

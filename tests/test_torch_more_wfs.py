@@ -18,6 +18,7 @@ package, float64 on the CPU, the same numpy inputs on both sides.
 """
 
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -138,15 +139,14 @@ def test_generic_run_all(name):
 @functools.lru_cache(maxsize=None)
 def h_cells():
     """tests/files/h_pbc_casscf.npz on both sides: (jax cell, port cell)."""
-    from pyqmc_tpu_torch.system.io import basis_from_pyscf_json
     from pyqmc_tpu_torch.system.mole import Cell
 
     from .fixtures_pbc import FILES, load_cell
 
     jcell, _ = load_cell("h_pbc_casscf")
     with np.load(f"{FILES}/h_pbc_casscf.npz") as z:
-        tcell = Cell([s.decode() for s in z["atom_symbols"]], z["atom_coords"],
-                     basis_from_pyscf_json(bytes(z["basis_json"]).decode()), z["lattice"],
+        tcell = Cell(list(zip([s.decode() for s in z["atom_symbols"]], z["atom_coords"])),
+                     z["lattice"], basis=json.loads(bytes(z["basis_json"]).decode()),
                      spin=int(z["spin"]))
     return jcell, tcell
 

@@ -22,6 +22,7 @@ optimisation off (compile_quick).
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -448,7 +449,21 @@ def test_factories():
     exp = DeterminantExpansion.single(4, 4)
     sl = generate_slater(tmol, tmf, mc=(exp, np.array([0.5])))
     assert sl.make_params("cpu")["det_coeff"].tolist() == [0.5]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # any other CI object goes through interpret_ci, as in the JAX package:
+    # a pyscf-style dense CI array over the CAS orbitals 3 and 4 (ncore 3)
+    from pyqmc_tpu.system.ci_import import interpret_ci as j_interpret_ci
+
+    mc = types.SimpleNamespace(ci=np.array([[0.9, 0.0], [0.0, -0.4]]), ncas=2, nelecas=(1, 1),
+                               ncore=3)
+    sl = generate_slater(tmol, tmf, mc=mc)
+    jexp, jcoeff = j_interpret_ci(mc, 1e-8)
+    for a, b in ((sl.expansion.occ_up, jexp.occ_up), (sl.expansion.occ_dn, jexp.occ_dn),
+                 (sl.expansion.map_up, jexp.map_up), (sl.expansion.map_dn, jexp.map_dn)):
+        np.testing.assert_array_equal(a, b)
+    assert sl.expansion.occ_up.tolist() == [[0, 1, 2, 3], [0, 1, 2, 4]]
+    assert sl.make_params("cpu")["det_coeff"].tolist() == [0.9, -0.4] == list(jcoeff)
+    assert sl.orbitals.norb == (5, 5)
+    with pytest.raises(AttributeError):
         generate_slater(tmol, tmf, mc=object())
     # the three-body Jastrow and the factories: JAX's to_opt layout and make_params
     from pyqmc_tpu.wftools import generate_geminal_jastrow as j_geminal

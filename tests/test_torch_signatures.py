@@ -5,7 +5,10 @@ so that the reference's own positional calls build the same objects:
   (pyqmc_tpu/models/slater.py), as wftools and twist_average call it;
 - ECPAccumulator(mol, naip=None, rmax=10.0, nselect, echunk, fused)
   (pyqmc_tpu/observables/ecp.py): ECPAccumulator(mol, 6) asks for six
-  quadrature points per atom and leaves rmax at 10 bohr.
+  quadrature points per atom and leaves rmax at 10 bohr;
+- the front door (Molecule, Cell, run_scf, run_casci, run_hci,
+  generate_slater, OPTIMIZE, VMC, DMC, generate_accumulators) takes the
+  JAX package's parameters, the port adding only `device` (and `dtype`).
 """
 
 import jax
@@ -69,3 +72,46 @@ def test_ecp_accumulator_takes_the_reference_order():
     assert ECPAccumulator(tmol, None, 6.0).rmax == 6.0
     with pytest.raises(ValueError):
         ECPAccumulator(tmol, 7)
+
+
+def _front_door_pairs():
+    from pyqmc_tpu import recipes as jrecipes
+    from pyqmc_tpu import wftools as jwftools
+    from pyqmc_tpu.system import casci as jcasci
+    from pyqmc_tpu.system import mole as jmole
+    from pyqmc_tpu.system import scf as jscf
+
+    from pyqmc_tpu_torch import recipes, wftools
+    from pyqmc_tpu_torch.system import casci, mole, scf
+
+    return {"Molecule": (mole.Molecule, jmole.Molecule), "Cell": (mole.Cell, jmole.Cell),
+            "run_scf": (scf.run_scf, jscf.run_scf),
+            "run_casci": (casci.run_casci, jcasci.run_casci),
+            "run_hci": (casci.run_hci, jcasci.run_hci),
+            "generate_slater": (wftools.generate_slater, jwftools.generate_slater),
+            "OPTIMIZE": (recipes.OPTIMIZE, jrecipes.OPTIMIZE),
+            "VMC": (recipes.VMC, jrecipes.VMC), "DMC": (recipes.DMC, jrecipes.DMC),
+            "generate_accumulators": (recipes.generate_accumulators,
+                                      jrecipes.generate_accumulators)}
+
+
+@pytest.mark.parametrize("name", ["Molecule", "Cell", "run_scf", "run_casci", "run_hci",
+                                  "generate_slater", "OPTIMIZE", "VMC", "DMC",
+                                  "generate_accumulators"])
+def test_front_door_takes_the_reference_signature(name):
+    """The front door's parameters are the JAX package's, in its order,
+    with its defaults and kinds; the port adds at most `device` (and
+    `dtype`), defaulting to None, after them and before a **kwargs."""
+    import inspect
+
+    port, ref = _front_door_pairs()[name]
+    tp = list(inspect.signature(port).parameters.values())
+    jp = list(inspect.signature(ref).parameters.values())
+    jfixed = [p for p in jp if p.kind != p.VAR_KEYWORD]
+    assert [(p.name, p.kind, p.default) for p in tp[:len(jfixed)]] == [
+        (p.name, p.kind, p.default) for p in jfixed]
+    rest = tp[len(jfixed):]
+    extra = [p for p in rest if p.kind != p.VAR_KEYWORD]
+    assert all(p.name in ("device", "dtype") and p.default is None for p in extra)
+    assert [p.name for p in rest if p.kind == p.VAR_KEYWORD] == [
+        p.name for p in jp if p.kind == p.VAR_KEYWORD]

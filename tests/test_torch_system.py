@@ -3,8 +3,9 @@
 - The committed `.npz` reproduces the HDF5 checkpoint it was converted from
   (exactly: the conversion copies the arrays), and `convert_hdf5_to_npz`
   rebuilds it.
-- `import pyqmc_tpu_torch` and all its modules leave jax out of
-  sys.modules (checked in a fresh interpreter).
+- `import pyqmc_tpu_torch`, `from pyqmc_tpu_torch.api import ...` and all
+  its modules leave jax out of sys.modules (checked in a fresh
+  interpreter).
 - params_from_numpy / params_to_numpy round-trip the JAX parameter tree.
 """
 
@@ -65,13 +66,19 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import pyqmc_tpu_torch\n"
+        "from pyqmc_tpu_torch.api import Molecule, run_scf, OPTIMIZE, VMC, DMC\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pyqmc_tpu.')))\n"
+        "assert not bad, bad\n"
         "for m in pkgutil.walk_packages(pyqmc_tpu_torch.__path__, 'pyqmc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pyqmc_tpu.')))\n"
         "assert not bad, bad\n"
         "for m in ('method.dmc', 'method.extrapolate', 'reblock', 'ops.tmove_sweep',\n"
         "          'ops.move_sweep_pbc', 'ops.gto_kernels', 'ops.distances', 'ops.pbc',\n"
-        "          'observables.ewald', 'system.supercell', 'wftools', 'method.twist_average'):\n"
+        "          'observables.ewald', 'system.supercell', 'wftools', 'method.twist_average',\n"
+        "          'api', 'recipes', 'system.elements', 'system.basis', 'system.tpu1_library',\n"
+        "          'system.integrals', 'system.ecp_integrals', 'system.scf', 'system.casci',\n"
+        "          'system.ci_import'):\n"
         "    assert 'pyqmc_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('pyqmc_tpu_torch')]))\n"
     )

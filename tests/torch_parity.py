@@ -110,7 +110,7 @@ def port_molecule(jmol):
     basis = {sym: [Shell(l=int(sh.l), exps=tuple(float(x) for x in sh.exps),
                          coeffs=tuple(float(c) for c in sh.coeffs)) for sh in jmol.basis[sym]]
              for sym in set(jmol.atom_symbols)}
-    return Molecule(list(jmol.atom_symbols), np.asarray(jmol.atom_coords), basis,
+    return Molecule(list(zip(jmol.atom_symbols, np.asarray(jmol.atom_coords))), basis=basis,
                     ecp=jmol.ecp, charge=jmol.charge, spin=jmol.spin)
 
 
