@@ -40,8 +40,7 @@ from .system.ci_import import (
     expansion_from_determinants,
     determinants_from_bitstrings,
 )
-# save_system and load_system, the HDF5 checkpoint pair of system/io.py: ROADMAP queue 1 item 4
-# (the port reads checkpoints as .npz: system/io.load_npz).
+from .system.io import save_system, load_system
 from .wftools import (
     generate_wf,
     generate_slater,
@@ -49,8 +48,9 @@ from .wftools import (
     generate_jastrow3,
     generate_gps_jastrow,
     generate_geminal_jastrow,
+    read_superposition,
+    save_wf_params,
+    read_wf_params,
 )
-# read_superposition, save_wf_params and read_wf_params read and write HDF5: ROADMAP queue 1 item 4.
-from .recipes import OPTIMIZE, VMC, DMC
-# read_mc_output and read_opt read the recipes' HDF5 output: ROADMAP queue 1 item 4.
+from .recipes import OPTIMIZE, VMC, DMC, read_mc_output, read_opt
 from .reblock import reblock, reblock_by2, opt_block, reblock_summary

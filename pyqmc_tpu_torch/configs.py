@@ -76,6 +76,16 @@ class Geometry:
         lat, inv, _ = self._tensors(epos)
         return enforce_pbc(lat, inv, epos)
 
+    def __hash__(self):
+        return hash((self.mode, b"open" if self.lattice is None else self.lattice.tobytes()))
+
+    def __eq__(self, other):
+        if not isinstance(other, Geometry):
+            return NotImplemented
+        if (self.lattice is None) != (other.lattice is None):
+            return False
+        return self.lattice is None or bool(np.array_equal(self.lattice, other.lattice))
+
 
 @dataclasses.dataclass
 class Configs:
@@ -91,6 +101,31 @@ class Configs:
         if wrap is None:
             wrap = torch.zeros(positions.shape, dtype=torch.int32, device=positions.device)
         return Configs(positions=positions, wrap=wrap, geometry=geometry)
+
+    def to_hdf(self, grp):
+        """Write positions, wrap and, for a lattice, the lattice under an
+        h5py group (the JAX package's datasets), overwriting earlier ones."""
+        for name in ("positions", "wrap"):
+            data = getattr(self, name).detach().cpu().numpy()
+            if name in grp:
+                grp[name][...] = data
+            else:
+                grp.create_dataset(name, data=data)
+        if self.geometry.periodic and "lattice" not in grp:
+            grp.create_dataset("lattice", data=self.geometry.lattice)
+
+    @staticmethod
+    def from_hdf(grp, device=None, dtype=None):
+        """Configs from a group written by to_hdf (or by the JAX package),
+        or a dict of its arrays: positions on `device` (the GPU unless it
+        says otherwise) in `dtype` (real_dtype(device) by default), wrap as
+        int32."""
+        device = resolve_device(device)
+        dtype = dtype or real_dtype(device)
+        lattice = np.asarray(grp["lattice"]) if "lattice" in grp else None
+        positions = torch.as_tensor(np.asarray(grp["positions"]), device=device, dtype=dtype)
+        wrap = torch.as_tensor(np.asarray(grp["wrap"]), device=device, dtype=torch.int32)
+        return Configs.create(positions, Geometry(lattice), wrap=wrap)
 
 
 def initial_guess(mol, nconfig, r=1.0, generator: Optional[torch.Generator] = None,

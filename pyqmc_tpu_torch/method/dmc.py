@@ -42,8 +42,11 @@ uniform, `u_branch`, as an argument.
 `rundmc` is the pipelined path of the JAX package's `rundmc`: propagation, population
 control and branching keep their state on the device, and a block's
 averages are copied to the host only after `pipeline_depth` later blocks
-have been queued. Not ported: `mesh=`, the checkpoint file with restart
-(they need h5py) and `profile_dir`.
+have been queued. With `hdf_file` every block is copied at once and
+written to the file (its averages as a row, the walkers, the weights and
+esigma), and a second call on the file resumes the run from them; the
+same restart contents can be carried in a dict (`checkpoint=`), so a run
+resumes on a machine without h5py. Not ported: `mesh=`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import os
 import time
 from typing import Optional
 
@@ -62,11 +66,14 @@ from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, limdrift_umrigar, sweep_plain
 from ..ops.tmove_sweep import build_fused_tmove_sweep, tmove_sweep_plain
-from .vmc import accumulator_draws, averages_to_host, downselects
+from ..utils.profiling import trace
+from .hdftools import append_hdf, open_hdf
+from .vmc import (accumulator_draws, averages_to_host, checkpoint_configs, downselects,
+                  fold_generator)
 from .vmc import vmc as vmc_run
 
 __all__ = ["limdrift_umrigar", "compute_S", "branch", "draw_dmc_streams", "make_dmc_block",
-           "make_popctrl_update", "rundmc"]
+           "make_popctrl_update", "read_checkpoint", "restart_state", "rundmc"]
 
 
 def compute_S(e_trial, e_est, esigma, eloc, grad2, tstep, nelec):
@@ -257,11 +264,58 @@ def make_popctrl_update(feedback, ewin):
     return update
 
 
+_CHECKPOINT_KEYS = {"weights", "configs", "e_trial", "e_est", "block"}
+
+
+def read_checkpoint(hdf_file):
+    """The restart contents of a DMC checkpoint file (rundmc(hdf_file=) of
+    either package): {"configs": {"positions", "wrap"[, "lattice"]} numpy,
+    "weights", and the last block's "e_trial", "e_est", "block"; "esigma"}.
+    None where the file does not exist or holds nothing (a run killed
+    before its first block); ValueError where it holds something else (a
+    VMC output, an optimization file)."""
+    if not os.path.exists(hdf_file):
+        return None
+    with open_hdf(hdf_file, "r") as f:
+        keys = set(f.keys())
+        if _CHECKPOINT_KEYS <= keys:
+            return {"configs": {k: np.asarray(f["configs"][k])
+                                for k in ("positions", "wrap", "lattice") if k in f["configs"]},
+                    "weights": np.asarray(f["weights"]),
+                    "e_trial": float(np.asarray(f["e_trial"])[-1]),
+                    "e_est": float(np.asarray(f["e_est"])[-1]),
+                    "block": int(np.asarray(f["block"])[-1]),
+                    "esigma": float(f.attrs.get("esigma", 1.0))}
+        if keys:
+            raise ValueError(f"not a DMC checkpoint: {hdf_file} has keys {sorted(keys)} but a DMC "
+                             f"restart needs {sorted(_CHECKPOINT_KEYS)}; point hdf_file at a "
+                             "fresh path or a DMC-produced checkpoint")
+    return None
+
+
+def restart_state(contents, configs, where="DMC restart"):
+    """(configs, weights, e_trial, e_est, esigma, first block) of a restart
+    from checkpoint contents (read_checkpoint's, or the dict rundmc fills
+    through `checkpoint=`), on `configs`' device in its dtype; ValueError
+    where the walkers' shape, their count against the weights' or the
+    lattice is not that of `configs`."""
+    device, dtype = configs.positions.device, configs.positions.dtype
+    saved = checkpoint_configs(contents["configs"], configs, where)
+    weights = torch.as_tensor(contents["weights"]).to(device=device, dtype=dtype, copy=True)
+    if weights.shape[0] != configs.positions.shape[0]:
+        raise ValueError(f"{where}: {weights.shape[0]} saved weights vs "
+                         f"{configs.positions.shape[0]} walkers")
+    scalar = lambda v: torch.as_tensor(float(v), dtype=dtype, device=device)
+    return (saved, weights, scalar(contents["e_trial"]), scalar(contents["e_est"]),
+            scalar(contents["esigma"]), int(contents["block"]) + 1)
+
+
 def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: int = 10,
            tstep: float = 0.02, accumulators: Optional[dict] = None, energy_acc=None,
            generator: Optional[torch.Generator] = None, verbose: bool = False,
            feedback: float = 1.0, warmup_vmc_blocks: int = 5, branchtime: int = 1,
-           ewin: int = 25, pipeline_depth: int = 4):
+           ewin: int = 25, pipeline_depth: int = 4, hdf_file: Optional[str] = None,
+           profile_dir: Optional[str] = None, checkpoint: Optional[dict] = None):
     """Run DMC where `configs` live; returns (list of per-block dicts of
     floats, numpy arrays for array-valued averages, final Configs, final
     weights).
@@ -275,6 +329,21 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
     `branchtime` blocks, the comb. Each block dict carries the block's
     averages plus "e_trial", "e_est", "block" and "block time" (the host
     time between this block's copy to the host and the previous one's).
+
+    hdf_file: append every block's averages to this HDF5 file, keep the
+    walkers, weights and esigma there; where it already holds a DMC
+    checkpoint, resume from it (read_checkpoint, restart_state): no
+    warm-up, its walkers, weights, e_trial, e_est and esigma, blocks
+    numbered on from its last, and a generator folded from `generator`'s
+    seed and that block (fold_generator). A file of another kind raises; an
+    empty one starts afresh.
+    checkpoint: a dict standing for the file's restart contents: empty, the
+    run starts afresh; holding contents (as rundmc leaves them, or
+    read_checkpoint's), it resumes from them as from a file. rundmc leaves
+    the contents of its last block in it (device tensors, no copy to the
+    host).
+    profile_dir: write a torch.profiler trace of the first block there
+    (utils/profiling.trace).
     """
     if energy_acc is None:
         raise ValueError("energy_acc (EnergyAccumulator) is required")
@@ -283,23 +352,33 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
         generator = torch.Generator(device=device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
     nconf, nelec = configs.positions.shape[:2]
+    contents = read_checkpoint(hdf_file) if hdf_file is not None else checkpoint or None
 
-    # VMC warm-up, then e_trial from the walkers' local energies
-    _, configs = vmc_run(wf, params, configs, nblocks=warmup_vmc_blocks, nsteps_per_block=10,
-                         tstep=0.5, accumulators={"energy": energy_acc}, generator=generator)
+    if contents is not None:
+        where = f"DMC restart from {hdf_file}" if hdf_file is not None else "DMC restart"
+        configs, weights, e_trial, e_est, esigma, block0 = restart_state(contents, configs, where)
+        generator = fold_generator(generator, block0)
+        if verbose:
+            print(f"dmc: resuming at block {block0}", flush=True)
+    else:
+        # VMC warm-up, then e_trial from the walkers' local energies
+        _, configs = vmc_run(wf, params, configs, nblocks=warmup_vmc_blocks,
+                             nsteps_per_block=10, tstep=0.5,
+                             accumulators={"energy": energy_acc}, generator=generator)
+        quat = torch.randn((nelec, nconf, 4), generator=generator, device=generator.device,
+                           dtype=dtype)
+        u_sel = None
+        if downselects({"energy": energy_acc}):
+            u_sel = torch.rand((nelec, nconf), generator=generator, device=generator.device,
+                               dtype=dtype).to(device)
+        eloc = energy_acc(wf, params, wf.recompute(params, configs.positions), configs.positions,
+                          rotations_from_quaternions(quat).to(device), u_sel)["total"]
+        e_est = torch.mean(eloc)
+        esigma = torch.std(eloc, unbiased=False)
+        e_trial = e_est
+        weights = torch.ones(nconf, dtype=dtype, device=device)
+        block0 = 0
     positions, wrap = configs.positions, configs.wrap
-    quat = torch.randn((nelec, nconf, 4), generator=generator, device=generator.device,
-                       dtype=dtype)
-    u_sel = None
-    if downselects({"energy": energy_acc}):
-        u_sel = torch.rand((nelec, nconf), generator=generator, device=generator.device,
-                           dtype=dtype).to(device)
-    eloc = energy_acc(wf, params, wf.recompute(params, positions), positions,
-                      rotations_from_quaternions(quat).to(device), u_sel)["total"]
-    e_est = torch.mean(eloc)
-    esigma = torch.std(eloc, unbiased=False)
-    e_trial = e_est
-    weights = torch.ones(nconf, dtype=dtype, device=device)
 
     block_fn, branch_fn = make_dmc_block(wf, energy_acc, configs.geometry, tstep,
                                          nsteps_per_block, accumulators=accumulators)
@@ -322,11 +401,26 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
             print(f"dmc block {b}: E={avg['energytotal']:.6f} w={avg['weight']:.4f} "
                   f"e_trial={avg['e_trial']:.6f}", flush=True)
 
+    def write(avg):
+        with open_hdf(hdf_file, "a") as f:
+            append_hdf(f, avg)
+            Configs.create(positions, configs.geometry, wrap=wrap).to_hdf(
+                f.require_group("configs"))
+            w = weights.detach().cpu().numpy()
+            if "weights" in f:
+                f["weights"][...] = w
+            else:
+                f.create_dataset("weights", data=w)
+            f.attrs["esigma"] = float(esigma)
+
+    # with a file every block reaches it before the next one starts
+    depth = 0 if hdf_file is not None else max(pipeline_depth, 1)
     pending = collections.deque()
-    for b in range(nblocks):
+    for b in range(block0, block0 + nblocks):
         t0 = time.perf_counter()
-        positions, wrap, weights, avg = block_fn(params, positions, wrap, weights, generator,
-                                                 e_trial, e_est, esigma)
+        with trace(profile_dir if b == block0 else None):
+            positions, wrap, weights, avg = block_fn(params, positions, wrap, weights, generator,
+                                                     e_trial, e_est, esigma)
         ring, nhist, e_trial, e_est = popctrl(ring, nhist, avg["energytotal"], avg["weight"])
         avg = dict(avg)
         avg["e_trial"], avg["e_est"] = e_trial, e_est
@@ -334,9 +428,16 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
             u_branch = torch.rand((), generator=generator, device=generator.device,
                                   dtype=dtype).to(device)
             positions, wrap, weights = branch_fn(positions, wrap, weights, u_branch)
+        if checkpoint is not None:
+            checkpoint.update(configs=Configs.create(positions.clone(), configs.geometry,
+                                                     wrap=wrap.clone()),
+                              weights=weights.clone(), e_trial=e_trial, e_est=e_est,
+                              esigma=esigma, block=b)
         pending.append((avg, b, t0))
-        if len(pending) > max(pipeline_depth, 1):
+        if len(pending) > depth:
             finish(*pending.popleft())
+            if hdf_file is not None:
+                write(block_data[-1])
     while pending:
         finish(*pending.popleft())
     return block_data, Configs.create(positions, configs.geometry, wrap=wrap), weights

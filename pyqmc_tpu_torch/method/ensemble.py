@@ -6,21 +6,25 @@ of pyqmc_tpu/method/ensemble.py). Each optimized state k minimizes
 with every expectation taken over the mixture rho = sum_i |psi_i|^2
 (method/sample_many.py). The energy gradient, the overlap gradients and the
 SR metric of one state are walker means on the device; the (nparam,
-nparam) solve runs on the host in float64 numpy. Not ported: `mesh=`
-(ROADMAP queue 1 item 8) and the checkpoint file with restart (`hdf_file=`,
-h5py; ROADMAP queue 1 item 4).
+nparam) solve runs on the host in float64 numpy. `hdf_file=` appends each
+iteration's row (the iteration, the overlap matrix, each optimized
+state's parameter vector x{k} and energy{k}) and keeps the walkers; a run
+on a file that holds iterations resumes after the last. Not ported:
+`mesh=` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 
 from ..observables.ecp import rotations_from_quaternions
+from .hdftools import append_hdf, open_hdf
 from .sample_many import amplitudes, make_overlap_block, sample_overlap
-from .vmc import averages_to_host, downselects
+from .vmc import averages_to_host, checkpoint_configs, downselects, fold_generator
 
 
 def make_state_gradient_fn(wfs, k, transform, energy_acc, mesh=None):
@@ -81,10 +85,12 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
     run), then for each optimized state its estimators on the sample's
     walkers (the energy's ECP draws from `generator`) and one step.
     Returns (params_list, records), a record per iteration: "iteration",
-    "overlap" (the blocks' mean) and "energy{k}" of each optimized state."""
-    if hdf_file is not None:
-        raise NotImplementedError("the ensemble checkpoint file (hdf_file=) needs h5py and is "
-                                  "not ported (ROADMAP queue 1 item 4)")
+    "overlap" (the blocks' mean) and "energy{k}" of each optimized state.
+
+    hdf_file: append each iteration's row and keep the walkers there; where
+    the file holds iterations, resume after the last: each optimized
+    state's last x{k}, the walkers, and a generator folded from
+    `generator`'s seed and the first iteration (vmc.fold_generator)."""
     if mesh is not None:
         raise NotImplementedError("the ensemble optimization with a mesh is not ported "
                                   "(ROADMAP queue 1 item 8)")
@@ -93,6 +99,22 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
         generator = torch.Generator(device=device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
     params_list = list(params_list)
+    start_it = 0
+    if hdf_file is not None and os.path.exists(hdf_file):
+        with open_hdf(hdf_file, "r") as f:
+            if "iteration" in f and len(f["iteration"]) > 0:
+                start_it = int(np.asarray(f["iteration"])[-1]) + 1
+                for k, t in enumerate(transforms):
+                    if t is not None:
+                        params_list[k] = t.deserialize(
+                            params_list[k], torch.as_tensor(np.asarray(f[f"x{k}"])[-1]))
+                if "configs" in f:
+                    configs = checkpoint_configs(f["configs"], configs,
+                                                 f"ensemble restart from {hdf_file}")
+                generator = fold_generator(generator, start_it)
+                if verbose:
+                    print(f"ensemble: resuming at iteration {start_it} from {hdf_file}",
+                          flush=True)
     block_fn = make_overlap_block(wfs, configs.geometry, tstep=tstep, nsteps=nsteps,
                                   energy_acc=energy_acc)
     grad_fns = [make_state_gradient_fn(wfs, k, t, energy_acc) if t is not None else None
@@ -100,7 +122,7 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
     ecp = getattr(energy_acc, "ecp_acc", None)
     nconf, nelec = configs.positions.shape[:2]
     records = []
-    for it in range(max_iterations):
+    for it in range(start_it, max_iterations):
         data, configs = sample_overlap(wfs, params_list, configs, generator, nblocks=nblocks,
                                        block_fn=block_fn)
         overlap = np.mean([d["overlap"] for d in data], axis=0)
@@ -126,6 +148,15 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
             params_list[k] = t.deserialize(params_list[k], flat)
             rec[f"energy{k}"] = float(e_k)
         records.append(rec)
+        if hdf_file is not None:
+            row = {"iteration": it, "overlap": overlap}
+            for k, t in enumerate(transforms):
+                if t is not None:
+                    row[f"x{k}"] = t.serialize(params_list[k]).detach().cpu().numpy()
+                    row[f"energy{k}"] = rec[f"energy{k}"]
+            with open_hdf(hdf_file, "a") as f:
+                append_hdf(f, row)
+                configs.to_hdf(f.require_group("configs"))
         if verbose:
             es = {kk: v for kk, v in rec.items() if kk.startswith("energy")}
             o01 = (abs(overlap[0, 1] / np.sqrt(abs(overlap[0, 0] * overlap[1, 1])))

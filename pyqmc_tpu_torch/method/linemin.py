@@ -13,13 +13,25 @@ noise and their differences are those of the parameters. The candidate of
 lowest energy whose effective sample size passes the guard is taken.
 
 Random numbers come from a torch.Generator where the JAX package takes a
-key; the iteration records carry the JAX package's keys. The walker mesh
-(queue 1 item 8) and the HDF5 restart file (queue 1 item 4) are not ported.
+key: iteration `it` draws from a generator folded from the caller's seed
+and `it` (vmc.fold_generator, the JAX package's fold_in(key, it)), so a
+run resumed at an iteration draws what the uninterrupted run drew there.
+The iteration records carry the JAX package's keys. Complex parameters
+(complex orbital coefficients) take SR's complex channel and the
+LinearTransform's real and imaginary directions, and stay complex.
+
+`hdf_file` appends each iteration's energy, energy_err, gnorm, tau and
+parameter vector x to an HDF5 file and keeps the walkers there; a run on a
+file that holds iterations resumes after the last of them (its x and
+walkers). `checkpoint=` carries the same restart contents in a dict, for a
+machine without h5py. The walker mesh (ROADMAP queue 1 item 8) is not
+ported.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Optional, Sequence
 
@@ -28,7 +40,12 @@ import torch
 
 from ..observables.ecp import rotations_from_quaternions
 from ..observables.sr import StochasticReconfiguration
-from .vmc import downselects, make_vmc_block, vmc
+from ..configs import Configs
+from .hdftools import append_hdf, open_hdf
+from .vmc import checkpoint_configs, downselects, fold_generator, make_vmc_block, vmc
+
+SR_KEYS = ("total", "dp", "dpH", "dpidpj")
+SR_KEYS_IMAG = ("total_im", "dpI", "dpHI", "dpidpjI")
 
 
 def make_correlated_sampler(wf, energy_acc):
@@ -110,6 +127,23 @@ def update_tau_grid(taus, taus0, ok_streak, stalled, tau_recover=2):
     return taus, ok_streak
 
 
+def read_checkpoint(hdf_file):
+    """The restart contents of a line minimization's file (of either
+    package): {"iterations": the iterations it holds, "x": the last
+    parameter vector, "configs": its walkers as numpy arrays or None}; None
+    where the file does not exist or holds no iteration."""
+    if not os.path.exists(hdf_file):
+        return None
+    with open_hdf(hdf_file, "r") as f:
+        if "x" not in f or len(f["x"]) == 0:
+            return None
+        cfg = None
+        if "configs" in f:
+            cfg = {k: np.asarray(f["configs"][k]) for k in ("positions", "wrap", "lattice")
+                   if k in f["configs"]}
+        return {"iterations": len(f["x"]), "x": np.asarray(f["x"])[-1], "configs": cfg}
+
+
 def line_minimization(
     wf,
     params,
@@ -128,6 +162,7 @@ def line_minimization(
     hdf_file: Optional[str] = None,
     verbose: bool = False,
     callback=None,
+    checkpoint: Optional[dict] = None,
 ):
     """Optimize params; returns (params, configs, iteration records).
 
@@ -144,11 +179,17 @@ def line_minimization(
     the wall time of its parts: "vmc" (the SR VMC blocks, their averages
     on the host), "solve" (the SR solve and the candidates' parameters)
     and "correlated" (the correlated sampling, its energies on the
-    host)."""
-    if hdf_file is not None:
-        raise NotImplementedError(
-            "the optimizer's HDF5 checkpoint and restart (ROADMAP queue 1 item 4) are not "
-            "ported")
+    host).
+
+    hdf_file: append each iteration's row (energy, energy_err, gnorm, tau,
+    x) and keep the walkers there; where the file holds iterations, resume
+    at iteration len(x) from its last x (ValueError where its length is
+    not the transform's parameter count) and its walkers (ValueError where
+    their shape is not that of `configs`). checkpoint: a dict standing for
+    the file's restart contents: empty, the run starts at iteration 0;
+    holding contents (as line_minimization leaves them, or
+    read_checkpoint's), it resumes from them. line_minimization leaves the
+    contents after its last iteration in it."""
     if generator is None:
         generator = torch.Generator(device=configs.positions.device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
@@ -162,18 +203,35 @@ def line_minimization(
                               nsteps=vmc_steps_per_block)
     downselect = downselects({"energy": energy_acc})
 
+    start_it = 0
+    contents = read_checkpoint(hdf_file) if hdf_file is not None else checkpoint or None
+    if contents is not None:
+        where = f"linemin restart from {hdf_file}" if hdf_file is not None else "linemin restart"
+        start_it = int(contents["iterations"])
+        x = np.asarray(contents["x"])
+        if x.shape[0] != transform.nparams:
+            raise ValueError(f"{where}: checkpoint holds {x.shape[0]} parameters but the "
+                             f"wavefunction/transform expects {transform.nparams}; the file "
+                             "belongs to a different wavefunction")
+        params = transform.deserialize(params, torch.as_tensor(x))
+        if contents.get("configs") is not None:
+            configs = checkpoint_configs(contents["configs"], configs, where)
+        if verbose:
+            print(f"linemin: resuming at iteration {start_it}", flush=True)
+
     taus = list(taus)
     taus0 = list(taus)
     ok_streak = 0
     records = []
-    for it in range(max_iterations):
+    for it in range(start_it, max_iterations):
+        gen_it = fold_generator(generator, it)
         t0 = time.perf_counter()
         data, configs = vmc(wf, params, configs, nblocks=vmc_blocks,
                             nsteps_per_block=vmc_steps_per_block, tstep=vmc_tstep,
-                            accumulators={"pgrad": sr}, generator=generator, block_fn=block_fn)
+                            accumulators={"pgrad": sr}, generator=gen_it, block_fn=block_fn)
         t1 = time.perf_counter()
-        block_avg = {k: np.stack([d[f"pgrad{k}"] for d in data])
-                     for k in ("total", "dp", "dpH", "dpidpj")}
+        keys = SR_KEYS + (SR_KEYS_IMAG if "pgraddpI" in data[0] else ())
+        block_avg = {k: np.stack([d[f"pgrad{k}"] for d in data]) for k in keys}
         if not np.all(np.isfinite(block_avg["total"])):
             raise ValueError("NaN/inf energy during optimization; the wavefunction may have "
                              "collapsed")
@@ -181,7 +239,7 @@ def line_minimization(
         p0 = transform.serialize(params).to(torch.float64).cpu().numpy()
         candidates = [transform.deserialize(params, p0 + s) for s in steps]
         t2 = time.perf_counter()
-        rot, u_sel = draw_ecp_streams(generator, nelec, ncorr, configs.positions.device,
+        rot, u_sel = draw_ecp_streams(gen_it, nelec, ncorr, configs.positions.device,
                                       configs.positions.dtype, downselect)
         positions = configs.positions[:ncorr]
         energies, ess = correlated_energies(sampler, params, candidates, positions, rot, u_sel)
@@ -213,4 +271,14 @@ def line_minimization(
         if verbose:
             print(f"linemin iter {it}: E={rec['energy']:.6f}({rec['energy_err']:.6f}) "
                   f"|g|={gnorm:.4f} tau={chosen_tau}", flush=True)
+        if hdf_file is not None or checkpoint is not None:
+            x = transform.serialize(params).detach().cpu().numpy()
+        if hdf_file is not None:
+            with open_hdf(hdf_file, "a") as f:
+                append_hdf(f, {"energy": rec["energy"], "energy_err": rec["energy_err"],
+                               "gnorm": gnorm, "tau": chosen_tau, "x": x})
+                configs.to_hdf(f.require_group("configs"))
+        if checkpoint is not None:
+            checkpoint.update(iterations=it + 1, x=x, configs=Configs.create(
+                configs.positions.clone(), configs.geometry, wrap=configs.wrap.clone()))
     return params, configs, records

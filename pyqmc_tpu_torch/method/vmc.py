@@ -22,14 +22,19 @@ torch.Generator, in one batch per kind:
         block without one draws what it drew before.
 
 A `streams` dict with those keys replaces the draws, so tests can feed the
-port and the JAX package the same numbers. The checkpoint file and restart
-of the JAX driver need h5py and are not ported yet.
+port and the JAX package the same numbers.
+
+`vmc(hdf_file=)` appends each block's averages to an HDF5 file (one row per
+block, the JAX package's datasets) and keeps the walkers there (group
+"configs"); a second call on the same file continues it. h5py is imported
+only then: every path without a file runs where h5py is absent.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import time
 from typing import Optional
 
@@ -40,6 +45,37 @@ from ..configs import Configs
 from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, sweep_plain
+from ..utils.profiling import trace
+from .hdftools import append_hdf, open_hdf
+
+
+def fold_generator(generator, index):
+    """A new torch.Generator on `generator`'s device, seeded from its
+    initial seed and `index` (the JAX package's fold_in(key, index)): a run
+    resumed at block or iteration `index` draws what it would have drawn
+    whatever came before."""
+    state = np.random.SeedSequence([int(generator.initial_seed()), int(index)]).generate_state(
+        1, np.uint64)
+    return torch.Generator(device=generator.device).manual_seed(int(state[0]) & (2**63 - 1))
+
+
+def checkpoint_configs(saved, configs, where):
+    """The walkers of a checkpoint, `saved` an h5py "configs" group, a dict
+    of its arrays or a Configs, on `configs`' device in its dtype;
+    ValueError where their shape or lattice is not that of `configs`."""
+    device, dtype = configs.positions.device, configs.positions.dtype
+    if isinstance(saved, Configs):  # copied: the run must not write into the caller's
+        saved = Configs.create(saved.positions.to(device=device, dtype=dtype, copy=True),
+                               saved.geometry, wrap=saved.wrap.to(device, copy=True))
+    else:
+        saved = Configs.from_hdf(saved, device=device, dtype=dtype)
+    if saved.positions.shape != configs.positions.shape:
+        raise ValueError(f"{where}: checkpoint walker shape {tuple(saved.positions.shape)} does "
+                         f"not match requested {tuple(configs.positions.shape)}; rerun with "
+                         "matching nconfig or delete the file")
+    if saved.geometry != configs.geometry:
+        raise ValueError(f"{where}: checkpoint lattice does not match the requested geometry")
+    return saved
 
 
 def draw_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, downselect=False):
@@ -173,22 +209,48 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
 def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int = 10,
         tstep: float = 0.5, accumulators: Optional[dict] = None,
         generator: Optional[torch.Generator] = None, block_fn=None, verbose: bool = False,
-        accumulate_every: int = 1):
+        accumulate_every: int = 1, hdf_file: Optional[str] = None,
+        continue_from: Optional[str] = None, profile_dir: Optional[str] = None):
     """Run VMC; returns (list of per-block dicts, final Configs): a 0-d
     average becomes a float, an array-valued one (the SR accumulator's dp,
     dpidpj, a density matrix, ...) a numpy array, as the JAX package's vmc
     returns them. The accumulators run every `accumulate_every` steps.
 
-    Blocks are pipelined: block b's averages are fetched (one copy to the
-    host of all of them, flattened and concatenated) after block b+1 has
-    been queued, so the host round trip
-    hides behind device work. "block time" is the host time from the
-    block's start until `block_fn` returned, taken before the next block
-    starts; the device may still be finishing the block's last kernels.
+    hdf_file: append every block's averages to this HDF5 file and keep the
+    walkers there; where the file already holds walkers and blocks, continue
+    it: its walkers, blocks numbered on from its last, and a generator
+    folded from `generator`'s seed and that block (fold_generator).
+    continue_from: start from the walkers of another run's file, blocks
+    from 0, writing to `hdf_file`, which must not exist yet.
+    profile_dir: write a torch.profiler trace of the first block there
+    (utils/profiling.trace).
+
+    Without a file, blocks are pipelined: block b's averages are fetched
+    (one copy to the host of all of them, flattened and concatenated) after
+    block b+1 has been queued, so the host round trip hides behind device
+    work. With a file every block's averages and walkers reach it before
+    the next block starts. "block time" is the host time from the block's
+    start until `block_fn` returned; the device may still be finishing the
+    block's last kernels.
     """
     if generator is None:
         generator = torch.Generator(device=configs.positions.device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
+    block0 = 0
+    if continue_from is not None:
+        if hdf_file is not None and os.path.exists(hdf_file):
+            raise ValueError(f"continue_from: output file {hdf_file} already exists — refusing "
+                             "to overwrite (pick a new hdf_file)")
+        with open_hdf(continue_from, "r") as f:
+            if "configs" not in f:
+                raise ValueError(f"continue_from file {continue_from} holds no walker configs")
+            configs = checkpoint_configs(f["configs"], configs, f"VMC checkpoint {continue_from}")
+    elif hdf_file is not None and os.path.exists(hdf_file):
+        with open_hdf(hdf_file, "r") as f:
+            if "configs" in f and "block" in f:
+                configs = checkpoint_configs(f["configs"], configs, f"VMC checkpoint {hdf_file}")
+                block0 = int(np.asarray(f["block"])[-1]) + 1
+                generator = fold_generator(generator, block0)
     if block_fn is None:
         block_fn = make_vmc_block(wf, accumulators, configs.geometry, tstep=tstep,
                                   nsteps=nsteps_per_block, accumulate_every=accumulate_every)
@@ -208,13 +270,21 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
             print(f"block {b}: acc={avg['acceptance']:.3f}"
                   + (f" E={tot:.6f}" if tot is not None else ""), flush=True)
 
-    for b in range(nblocks):
+    for b in range(block0, block0 + nblocks):
         t0 = time.perf_counter()
-        positions, wrap, avg = block_fn(params, positions, wrap, generator)
+        with trace(profile_dir if b == block0 else None):
+            positions, wrap, avg = block_fn(params, positions, wrap, generator)
         seconds = time.perf_counter() - t0
         if pending is not None:
             flush(pending)
         pending = (b, avg, seconds)
+        if hdf_file is not None:
+            flush(pending)
+            pending = None
+            with open_hdf(hdf_file, "a") as f:
+                append_hdf(f, block_data[-1])
+                Configs.create(positions, configs.geometry, wrap=wrap).to_hdf(
+                    f.require_group("configs"))
     if pending is not None:
         flush(pending)
     return block_data, Configs.create(positions, configs.geometry, wrap=wrap)

@@ -91,14 +91,54 @@ def _polypade_constants(betas, device, dtype):
 
 def eval_basis_all(basis, r):
     """(value, f'/r, lap) of a tuple of BasisFn at r (...,): each (..., nk).
-    A basis of polypade functions of one cutoff is evaluated in one
-    broadcast over its betas, with the same bits as function by function;
-    any other basis function by function."""
-    if all(b.kind == "polypade" for b in basis) and len({b.rcut for b in basis}) == 1:
+    The polypade functions of one cutoff are evaluated in one broadcast over
+    their betas, with the same bits as function by function (a basis of
+    them alone returns that broadcast); any other function apart, and the
+    columns stacked in the basis order."""
+    ladders = {}
+    for i, b in enumerate(basis):
+        if b.kind == "polypade":
+            ladders.setdefault(b.rcut, []).append(i)
+    if len(ladders) == 1 and len(next(iter(ladders.values()))) == len(basis):
         consts = _polypade_constants(tuple(b.param for b in basis), r.device, r.dtype)
         return _polypade(r[..., None], *consts, basis[0].rcut)
-    outs = [basis_all(b, r) for b in basis]
-    return tuple(torch.stack([o[i] for o in outs], dim=-1) for i in range(3))
+    cols = [None] * len(basis)
+    for rcut, idx in ladders.items():
+        consts = _polypade_constants(tuple(basis[i].param for i in idx), r.device, r.dtype)
+        out = _polypade(r[..., None], *consts, rcut)
+        for j, i in enumerate(idx):
+            cols[i] = tuple(o[..., j] for o in out)
+    for i, b in enumerate(basis):
+        if cols[i] is None:
+            cols[i] = basis_all(b, r)
+    return tuple(torch.stack([c[k] for c in cols], dim=-1) for k in range(3))
+
+
+def eval_bases_all(*pairs):
+    """[eval_basis_all(basis, r) for (basis, r) in pairs] with the polypade
+    functions of one cutoff evaluated in one broadcast over every pair's
+    points (the r concatenated along their last axis, so their leading axes
+    agree) and the union of their betas: the same bits as eval_basis_all,
+    in fewer launches."""
+    rcuts = {b.rcut for basis, _ in pairs for b in basis if b.kind == "polypade"}
+    if len(rcuts) != 1:
+        return [eval_basis_all(basis, r) for basis, r in pairs]
+    rcut = rcuts.pop()
+    betas = sorted({b.param for basis, _ in pairs for b in basis if b.kind == "polypade"})
+    r0 = pairs[0][1]
+    consts = _polypade_constants(tuple(betas), r0.device, r0.dtype)
+    ladder = _polypade(torch.cat([r for _, r in pairs], dim=-1)[..., None], *consts, rcut)
+    out, off = [], 0
+    for basis, r in pairs:
+        n = r.shape[-1]
+        if [b.param for b in basis] == betas and all(b.kind == "polypade" for b in basis):
+            out.append(tuple(o[..., off:off + n, :] for o in ladder))  # the ladder itself
+        else:
+            cols = [tuple(o[..., off:off + n, betas.index(b.param)] for o in ladder)
+                    if b.kind == "polypade" else basis_all(b, r) for b in basis]
+            out.append(tuple(torch.stack([c[k] for c in cols], dim=-1) for k in range(3)))
+        off += n
+    return out
 
 
 def eval_basis_value(basis, r):

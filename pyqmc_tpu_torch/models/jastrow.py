@@ -43,7 +43,9 @@ class JastrowSpin:
         self._mi = self.geometry.minimal_image_for(max(b.rcut for b in self.a_basis + self.b_basis))
         self._spin = np.concatenate([np.zeros(self.nup, dtype=np.int64),
                                      np.ones(self.ndn, dtype=np.int64)])
-        self._const = DeviceConstants(atoms=self.atom_coords, spin=self._spin)
+        self._const = DeviceConstants(atoms=self.atom_coords, spin=self._spin,
+                                      notself=1.0 - np.eye(self.nelec),
+                                      chan=np.arange(2)[:, None] + self._spin[None, :])
 
     def make_params(self, device=None, dtype=None):
         """acoeff (natom, na, 2) zeros; bcoeff (nb, 3) with the e-e cusp
@@ -93,20 +95,23 @@ class JastrowSpin:
         ac = params["acoeff"][:, :, spin_e]  # (natom, na)
         d_ee = self._mi(ep[:, :, None, :] - positions[:, None, :, :])  # (nconf, A, nelec, 3)
         r_ee = torch.sqrt(torch.sum(d_ee * d_ee, dim=-1))
-        bc = params["bcoeff"][:, spin_e + spin]  # (nb, nelec)
-        notself = torch.ones(self.nelec, dtype=ep.dtype, device=ep.device)
-        notself[e] = 0.0
-        bcm = bc * notself
+        c = self._const.get(ep.device, ep.dtype)
+        bcm = params["bcoeff"][:, c["chan"][spin_e]] * c["notself"][e]  # (nb, nelec)
+        (a_v, a_fr, a_lp), (b_v, b_fr, b_lp) = func3d.eval_bases_all((self.a_basis, r_ei),
+                                                                      (self.b_basis, r_ee))
+        # products and sums over the few basis functions and partners: no
+        # einsum, whose host cost exceeds its one small product's
+        bct = bcm.T  # (nelec, nb)
+
+        def both(a, b):  # (c, A) sums over the e-ion and e-e terms
+            return torch.sum(a * ac, dim=(-2, -1)) + torch.sum(b * bct, dim=(-2, -1))
+
+        u = both(a_v, b_v)
         if not want_derivs:
-            u = (torch.einsum("caIk,Ik->ca", func3d.eval_basis_value(self.a_basis, r_ei), ac)
-                 + torch.einsum("cajk,kj->ca", func3d.eval_basis_value(self.b_basis, r_ee), bcm))
             return (u if aux else u[:, 0]), None, None
-        a_v, a_fr, a_lp = func3d.eval_basis_all(self.a_basis, r_ei)
-        b_v, b_fr, b_lp = func3d.eval_basis_all(self.b_basis, r_ee)
-        u = torch.einsum("caIk,Ik->ca", a_v, ac) + torch.einsum("cajk,kj->ca", b_v, bcm)
-        g = (torch.einsum("caIk,Ik,caIx->cax", a_fr, ac, d_ei)
-             + torch.einsum("cajk,kj,cajx->cax", b_fr, bcm, d_ee))
-        lap = torch.einsum("caIk,Ik->ca", a_lp, ac) + torch.einsum("cajk,kj->ca", b_lp, bcm)
+        g = (torch.sum(torch.sum(a_fr * ac, dim=-1)[..., None] * d_ei, dim=-2)
+             + torch.sum(torch.sum(b_fr * bct, dim=-1)[..., None] * d_ee, dim=-2))
+        lap = both(a_lp, b_lp)
         if aux:
             return u, g, lap
         return u[:, 0], g[:, 0], lap[:, 0]
@@ -226,8 +231,8 @@ class JastrowSpin:
         r_ee = torch.sqrt(torch.sum(d_ee * d_ee, dim=-1))
         notself = (es_t[:, None] != torch.arange(self.nelec, device=epos.device)[None, :])
         bcm = params["bcoeff"][:, spin_e[:, None] + spin[None, :]] * notself.to(epos.dtype)
-        a_v, a_fr, a_lp = func3d.eval_basis_all(self.a_basis, r_ei)
-        b_v, b_fr, b_lp = func3d.eval_basis_all(self.b_basis, r_ee)
+        (a_v, a_fr, a_lp), (b_v, b_fr, b_lp) = func3d.eval_bases_all((self.a_basis, r_ei),
+                                                                      (self.b_basis, r_ee))
         g = (torch.einsum("caIm,Ima,caIx->cax", a_fr, ac, d_ei)
              + torch.einsum("cajm,maj,cajx->cax", b_fr, bcm, d_ee))
         lap = torch.einsum("caIm,Ima->ca", a_lp, ac) + torch.einsum("cajm,maj->ca", b_lp, bcm)

@@ -10,9 +10,15 @@ damped by f(r) = 9(r/c)^2 - 15(r/c)^4 + 7(r/c)^6, r = |grad lnPsi|^-1,
 within r < nodal_cutoff of a node. dp and dpH take the regularized
 gradients; dpidpj pairs one raw factor with one regularized.
 
-The imaginary channel of the JAX package (total_im, dpI, dpHI, dpidpjI)
-needs a complex local energy, which the port does not have: gradients with
-an imaginary part raise NotImplementedError.
+Complex parameters or gradients (complex orbital coefficients, a general
+twist) take the complex channel of the JAX package: the gradients arrive as
+a real pair (R, I) from LinearTransform.serialize_gradients_pair, and with
+O_k = R_k + i I_k and the local energy E_R + i E_I,
+    g_k  = 2 [<E_R R_k> - <E_R><R_k> + <E_I I_k> - <E_I><I_k>]
+    S_kl = <R_k R_l + I_k I_l> - <R_k><R_l> - <I_k><I_l>,
+the conjugated metric Re<O_k* O_l> - Re(<O_k>* <O_l>). The walker means
+run on the device in the walkers' dtype (avg's total_im, dpI, dpHI,
+dpidpjI beside the real ones), the solve on the host in float64.
 """
 
 from __future__ import annotations
@@ -51,30 +57,34 @@ class StochasticReconfiguration:
         return getattr(self.energy_acc, "ecp_acc", None)
 
     def __call__(self, wf, params, state, positions, rot=None, u_sel=None):
-        d = self.energy_acc(wf, params, state, positions, rot, u_sel)
+        d = self.energy_acc(wf, params, state, positions, rot, u_sel, with_imag=True)
         R, I = self.transform.serialize_gradients_pair(wf.pgradient(params, positions))
-        if I is not None:
-            raise NotImplementedError(
-                "SR with complex parameter gradients (the complex channel of the local "
-                "energy and of the parameter derivatives, as in test_complex_linemin.py) is "
-                "not ported (ROADMAP queue 1 item 9)")
-        return {"total": d["total"], "grad2": d["grad2"], "dpR": R}
+        return {"total": d["total"], "total_im": d["total_im"], "grad2": d["grad2"], "dpR": R,
+                "dpI": I}
 
     def avg(self, wf, params, state, positions, rot=None, u_sel=None):
+        """Walker means {total, dp, dpH, dpidpj}, and where the gradients
+        have an imaginary part {total_im, dpI, dpHI, dpidpjI}."""
         dat = self(wf, params, state, positions, rot, u_sel)
-        eR, R = dat["total"], dat["dpR"]
+        eR, R, I = dat["total"], dat["dpR"], dat["dpI"]
         nconf = R.shape[0]
         f = nodal_regularization(dat["grad2"], self.nodal_cutoff)
         Rreg = R * f[:, None]
-        return {
+        out = {
             "total": torch.mean(eR),
             "dp": torch.mean(Rreg, dim=0),
             "dpH": (eR @ Rreg) / nconf,
             "dpidpj": (R.T @ Rreg) / nconf,
         }
+        if I is not None:
+            eI = dat["total_im"]
+            Ireg = I * f[:, None]
+            out.update({"total_im": torch.mean(eI), "dpI": torch.mean(Ireg, dim=0),
+                        "dpHI": (eI @ Ireg) / nconf, "dpidpjI": (I.T @ Ireg) / nconf})
+        return out
 
     def keys(self):
-        return {"total", "dp", "dpH", "dpidpj"}
+        return {"total", "dp", "dpH", "dpidpj", "dpI", "dpHI", "dpidpjI"}
 
     def delta_p(self, taus, block_avg):
         """Parameter steps -tau S_reg^-1 g for each tau, and |g|, from the
@@ -85,5 +95,10 @@ class StochasticReconfiguration:
         dpidpj = np.mean(np.asarray(block_avg["dpidpj"], dtype=np.float64), axis=0)
         g = 2.0 * (dpH - en * dp)
         S = dpidpj - np.outer(dp, dp)
+        if "dpI" in block_avg:
+            mean = lambda k: np.mean(np.asarray(block_avg[k], dtype=np.float64), axis=0)
+            enI, dpI = mean("total_im"), mean("dpI")
+            g = g + 2.0 * (mean("dpHI") - enI * dpI)
+            S = S + mean("dpidpjI") - np.outer(dpI, dpI)
         step = np.linalg.solve(S + self.eps * np.eye(len(dp)), g)
         return [-tau * step for tau in taus], float(np.linalg.norm(g))

@@ -35,6 +35,17 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_paths(tree, prefix=()):
+    """[(path, leaf)] in tree_leaves order, path the tuple of dict keys and
+    list or tuple indices from the root to the leaf (the keys of JAX's
+    tree_flatten_with_path)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree) for pl in tree_paths(t, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def tree_unflatten(template, leaves):
     """A tree of `template`'s structure whose leaves are `leaves`, in
     tree_leaves order."""

@@ -89,17 +89,33 @@ class GTOSpec:
         return self._tensors[key]
 
 
-def _monomials(xs, comps):
-    """Monomial products for components [(lx, ly, lz)]; xs = (x, y, z) each
-    (M, S). Returns (M, S, ncart)."""
-    l = sum(comps[0])
+def _powers(xs, l):
+    """[[1, a, a^2, ..., a^l] for a in xs = (x, y, z)], each power the
+    previous times a."""
     pows = []
     for a in xs:
         p = [torch.ones_like(a), a]
         for _ in range(2, l + 1):
             p.append(p[-1] * a)
         pows.append(p)
-    return torch.stack([pows[0][i] * pows[1][j] * pows[2][k] for (i, j, k) in comps], dim=-1)
+    return pows
+
+
+def _monomial(pows, comp):
+    i, j, k = comp
+    return pows[0][i] * pows[1][j] * pows[2][k]
+
+
+def _monomials(xs, comps):
+    """Monomial products for components [(lx, ly, lz)]; xs = (x, y, z) each
+    (M, S). Returns (M, S, ncart)."""
+    pows = _powers(xs, sum(comps[0]))
+    return torch.stack([_monomial(pows, c) for c in comps], dim=-1)
+
+
+def _times(n, t):
+    """n * t, with no launch where n is 1 (the same bits)."""
+    return t if n == 1 else n * t
 
 
 def eval_gto(spec: GTOSpec, X: torch.Tensor, mode: int = 0):
@@ -124,8 +140,12 @@ def eval_gto(spec: GTOSpec, X: torch.Tensor, mode: int = 0):
             g2 = torch.einsum("msp,sp->ms", e, coef * alpha * alpha)
         comps = cart_components(g.l)
         x, y, z = r[..., 0], r[..., 1], r[..., 2]
-        P = _monomials((x, y, z), comps)  # (M, S, C)
+        # the powers of x, y and z once per group: each monomial below is the
+        # product that a table of its own degree would give
+        pows = _powers((x, y, z), g.l)
+        P = torch.stack([_monomial(pows, c) for c in comps], dim=-1)  # (M, S, C)
         vals.append(torch.einsum("msc,cq->msq", P * g0[..., None], C).reshape(M, -1))
+        zero = torch.zeros_like(x) if mode >= 1 else None
         if mode >= 1:
             dP = []
             for ax in range(3):
@@ -133,11 +153,11 @@ def eval_gto(spec: GTOSpec, X: torch.Tensor, mode: int = 0):
                 for comp in comps:
                     n = comp[ax]
                     if n == 0:
-                        cols.append(torch.zeros_like(x))
+                        cols.append(zero)
                     else:
                         e2 = list(comp)
                         e2[ax] = n - 1
-                        cols.append(n * _monomials((x, y, z), [tuple(e2)])[..., 0])
+                        cols.append(_times(n, _monomial(pows, e2)))
                 dP.append(torch.stack(cols, dim=-1))
             dP = torch.stack(dP, dim=1)  # (M, 3, S, C)
             grad_cart = dP * g0[:, None, :, None] - 2.0 * (
@@ -147,12 +167,12 @@ def eval_gto(spec: GTOSpec, X: torch.Tensor, mode: int = 0):
         if mode >= 2:
             cols = []
             for (i, j, k) in comps:
-                acc = torch.zeros_like(x)
+                acc = zero
                 for ax, n in enumerate((i, j, k)):
                     if n >= 2:
                         e2 = [i, j, k]
                         e2[ax] = n - 2
-                        acc = acc + n * (n - 1) * _monomials((x, y, z), [tuple(e2)])[..., 0]
+                        acc = acc + n * (n - 1) * _monomial(pows, e2)
                 cols.append(acc)
             lapP = torch.stack(cols, dim=-1)
             lap_cart = (lapP * g0[..., None] - (4.0 * g.l + 6.0) * P * g1[..., None]

@@ -1,31 +1,37 @@
-"""One-call workflows (counterpart of pyqmc_tpu/recipes.py:80-240).
+"""One-call workflows (counterpart of pyqmc_tpu/recipes.py).
 
     mol = Molecule("O 0 0 0.2217; H 0 1.4309 -0.8867; H 0 -1.4309 -0.8867", basis="sto-3g")
-    wf, params, records = OPTIMIZE(mol, nconfig=1000)
-    data, configs = VMC(mol, params=params, nconfig=2000, nblocks=100)
-    data, configs, weights = DMC(mol, params=params, nconfig=2000)
+    OPTIMIZE(mol, output="opt.h5")
+    VMC(mol, output="vmc.h5", load_parameters="opt.h5")
+    DMC(mol, output="dmc.h5", load_parameters="opt.h5")
+    read_mc_output("dmc.h5")
 
 Each recipe starts from a Molecule or Cell (and a MeanField, else it runs
-run_scf), builds the Slater x Jastrow of generate_wf and the energy
-accumulator, and runs on the GPU unless `device` says otherwise (float32
-there, float64 on device="cpu"). `params=` carries OPTIMIZE's parameters
-into VMC and DMC without a file. Random numbers come from torch.Generators
-seeded from `seed`: the walkers of initial_guess from `seed` (drawn on the
-CPU, so a seed gives the same walkers on every device), OPTIMIZE's
-equilibration from seed + 1 and its line minimization from seed + 2, VMC
-from seed + 3 and DMC from seed + 4, on the walkers' device.
-
-The HDF5 paths (output=, load_parameters=, a chkfile path as `mol`,
-ci_checkfile=, read_mc_output, read_opt) need h5py, which the GPU machine
-has not got (ROADMAP queue 1 item 4); the walker mesh (mesh=) is ROADMAP
-queue 1 item 8. Both raise NotImplementedError.
+run_scf), or from a pyscf chkfile path (system/chkfile.recover_pyscf;
+`ci_checkfile=` adds a CASCI/HCI expansion), builds the Slater x Jastrow
+of generate_wf and the energy accumulator, and runs on the GPU unless
+`device` says otherwise (float32 there, float64 on device="cpu").
+`output=` writes the method's HDF5 file (OPTIMIZE: the line
+minimization's rows and the parameters under "wf"; VMC and DMC: a row per
+block, and a second call on the file continues the run);
+`load_parameters=` reads OPTIMIZE's parameters. These need h5py; `params=`
+carries OPTIMIZE's parameters into VMC and DMC without a file. Random
+numbers come from torch.Generators seeded from `seed`: the walkers of
+initial_guess from `seed` (drawn on the CPU, so a seed gives the same
+walkers on every device), OPTIMIZE's equilibration from seed + 1 and its
+line minimization from seed + 2, VMC from seed + 3 and DMC from seed + 4,
+on the walkers' device. The walker mesh (mesh=) is ROADMAP queue 1 item 8
+and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+from . import reblock as rb
 
 from .configs import initial_guess
 from .method.dmc import rundmc
@@ -36,14 +42,8 @@ from .observables.ecp import ECPAccumulator
 from .observables.transform import LinearTransform
 from .system.scf import run_scf
 from .utils.dtypes import real_dtype, resolve_device
-from .wftools import generate_wf
-
-_HDF5 = ("needs h5py, which the port does not use yet (ROADMAP queue 1 item 4: the HDF5 output "
-         "and restart)")
-
-
-def _hdf5(what):
-    raise NotImplementedError(f"{what} {_HDF5}")
+from .method.hdftools import open_hdf
+from .wftools import generate_wf, read_wf_params, save_wf_params
 
 
 def _no_mesh(mesh):
@@ -57,13 +57,32 @@ def _generator(seed, device):
 
 
 def _resolve_system(mol, mf=None, ci_checkfile=None):
-    """(mol, mf, mc) as the JAX package's _resolve_system, for a Molecule or
-    Cell; a pyscf chkfile path and ci_checkfile need h5py."""
+    """(mol, mf, mc) from a Molecule or Cell (and an optional MeanField) or a
+    pyscf chkfile path; mc a CASCI/HCI namespace from `ci_checkfile` for
+    generate_wf(mc=), else None."""
+    mc = None
     if isinstance(mol, str):
-        _hdf5("a chkfile path as `mol`")
-    if ci_checkfile is not None:
-        _hdf5("ci_checkfile=")
-    return mol, mf, None
+        from .system.chkfile import recover_pyscf
+
+        if mf is not None:
+            raise ValueError("pass either a chkfile path or an explicit MeanField, not both")
+        out = recover_pyscf(mol, ci_checkfile=ci_checkfile)
+        mol, mf = out[0], out[1]
+        if len(out) > 2:
+            mc = out[2]
+    elif ci_checkfile is not None:
+        from .system.chkfile import _mc_shim, load
+
+        casdict = load(ci_checkfile, "ci") or load(ci_checkfile, "mcscf")
+        if casdict is None:
+            raise ValueError(f"{ci_checkfile}: neither 'ci' nor 'mcscf' group present")
+        mc = _mc_shim(casdict)
+    return mol, mf, mc
+
+
+def _load_parameters(path, params0):
+    with open_hdf(path, "r") as f:
+        return read_wf_params(f["wf"], params0)
 
 
 def _setup(mol, mf=None, nconfig=500, jastrow3=False, jastrow_kws=None, seed=0, naip=None,
@@ -152,9 +171,8 @@ def OPTIMIZE(mol, output: Optional[str] = None, mf=None, nconfig=500, max_iterat
              ci_checkfile=None, device=None, **linemin_kws):
     """Optimize the Slater-Jastrow's Jastrow; returns (wf, params, records):
     4 x 10 VMC steps of equilibration, then line_minimization
-    (`linemin_kws` are its keywords)."""
-    if output is not None:
-        _hdf5("output=")
+    (`linemin_kws` are its keywords). output: its HDF5 file (resumed where
+    it holds iterations), the parameters then written under "wf"."""
     mol, mf, wf, params, to_opt, configs, energy = _setup(
         mol, mf, nconfig, jastrow3, jastrow_kws, seed, naip, ci_checkfile, device)
     device = configs.positions.device
@@ -163,7 +181,10 @@ def OPTIMIZE(mol, output: Optional[str] = None, mf=None, nconfig=500, max_iterat
                      generator=_generator(seed + 1, device))
     params, configs, records = line_minimization(
         wf, params, configs, lt, energy, generator=_generator(seed + 2, device),
-        max_iterations=max_iterations, verbose=verbose, **linemin_kws)
+        max_iterations=max_iterations, hdf_file=output, verbose=verbose, **linemin_kws)
+    if output is not None:
+        with open_hdf(output, "a") as f:
+            save_wf_params(f.require_group("wf"), params)
     return wf, params, records
 
 
@@ -174,21 +195,22 @@ def VMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nb
     """Run VMC from new walkers; returns (block data, configs).
 
     params: OPTIMIZE's parameters (jastrow3 and jastrow_kws as in that
-    call), else the defaults of generate_wf. accumulators: accumulator
-    objects or generate_accumulators keywords, merged with the energy."""
-    if output is not None:
-        _hdf5("output=")
-    if load_parameters is not None:
-        _hdf5("load_parameters=")
+    call), else the defaults of generate_wf; load_parameters: the same read
+    from OPTIMIZE's output file. accumulators: accumulator objects or
+    generate_accumulators keywords, merged with the energy. output: the HDF5
+    file of vmc(hdf_file=)."""
     _no_mesh(mesh)
     mol, mf, wf, params0, to_opt, configs, energy = _setup(
         mol, mf, nconfig, jastrow3, jastrow_kws, seed, naip, ci_checkfile, device)
     params = params0 if params is None else params
+    if load_parameters is not None:
+        params = _load_parameters(load_parameters, params0)
     accs = {"energy": energy}
     accs.update(_resolve_accumulators(mol, mf, wf, accumulators, naip=naip))
     return vmc(wf, params, configs, nblocks=nblocks, nsteps_per_block=nsteps_per_block,
                tstep=tstep, accumulators=accs,
-               generator=_generator(seed + 3, configs.positions.device), verbose=verbose)
+               generator=_generator(seed + 3, configs.positions.device), verbose=verbose,
+               hdf_file=output)
 
 
 def DMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nblocks=100,
@@ -197,29 +219,53 @@ def DMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nb
         ci_checkfile=None, device=None, **dmc_kws):
     """Run DMC with T-moves from new walkers (rundmc's VMC warm-up first;
     `dmc_kws` are rundmc's keywords); returns (block data, configs,
-    weights). params and accumulators as in VMC."""
-    if output is not None:
-        _hdf5("output=")
-    if load_parameters is not None:
-        _hdf5("load_parameters=")
+    weights). params, load_parameters and accumulators as in VMC. output:
+    the HDF5 file of rundmc(hdf_file=), resumed where it holds a DMC
+    checkpoint."""
     _no_mesh(mesh)
     mol, mf, wf, params0, to_opt, configs, energy = _setup(
         mol, mf, nconfig, jastrow3, jastrow_kws, seed, naip, ci_checkfile, device)
     params = params0 if params is None else params
+    if load_parameters is not None:
+        params = _load_parameters(load_parameters, params0)
     extra = _resolve_accumulators(mol, mf, wf, accumulators, naip=naip)
     if extra:
         dmc_kws["accumulators"] = {**dmc_kws.get("accumulators", {}), **extra}
     return rundmc(wf, params, configs, nblocks=nblocks, nsteps_per_block=nsteps_per_block,
                   tstep=tstep, energy_acc=energy,
                   generator=_generator(seed + 4, configs.positions.device), verbose=verbose,
-                  **dmc_kws)
+                  hdf_file=output, **dmc_kws)
 
 
 def read_mc_output(filename, warmup=5, reblocks=16, weights="auto"):
-    """Summarize a VMC/DMC HDF5 output: needs h5py (ROADMAP queue 1 item 4)."""
-    _hdf5("read_mc_output")
+    """Summarize a VMC or DMC HDF5 output: per dataset after `warmup` blocks
+    its mean and "<key>_err" (reblock_summary over min(reblocks, n / 2)
+    groups; array-valued observables elementwise). weights: "auto" weights
+    a DMC output's blocks by their mean walker weight (the "weight"
+    dataset), None the unweighted analysis, or an (nblocks,) array."""
+    out = {}
+    with open_hdf(filename, "r") as f:
+        w = None
+        if isinstance(weights, str) and weights == "auto":
+            if "weight" in f:
+                w = np.asarray(f["weight"])[warmup:]
+        elif weights is not None:
+            w = np.asarray(weights)[warmup:]
+        for k in f.keys():
+            if k in ("configs", "wf", "weights"):
+                continue
+            data = np.asarray(f[k])[warmup:]
+            if np.issubdtype(data.dtype, np.number) and len(data) >= 2:
+                # the weight stream itself (and the block index) unweighted
+                wk = None if k in ("weight", "block") else w
+                s = rb.reblock_summary(data, min(reblocks, max(2, len(data) // 2)), weights=wk)
+                out[k] = s["mean"]
+                out[k + "_err"] = s["standard error"]
+    return out
 
 
 def read_opt(filename):
-    """Summarize an optimization HDF5 output: needs h5py (ROADMAP queue 1 item 4)."""
-    _hdf5("read_opt")
+    """The energy, energy_err, gnorm and tau rows of an optimization's HDF5
+    output."""
+    with open_hdf(filename, "r") as f:
+        return {k: np.asarray(f[k]) for k in ("energy", "energy_err", "gnorm", "tau") if k in f}

@@ -1,12 +1,13 @@
-"""System + mean-field checkpoints as `.npz` (counterpart of
-pyqmc_tpu/system/io.py).
+"""System + mean-field checkpoints (counterpart of pyqmc_tpu/system/io.py).
 
-The JAX package writes a molecule and its SCF solution to HDF5
-(`save_system`). The machine the port runs on has no h5py, so the port reads
-an `.npz` holding the same datasets under the same names, with the two JSON
-blobs (basis, ECP) stored as numpy unicode strings so that
-`np.load(allow_pickle=False)` reads every entry. `convert_hdf5_to_npz` makes
-the `.npz` once from an HDF5 checkpoint; it imports h5py only when called.
+`save_system` and `load_system` write and read a Molecule or Cell and its
+SCF solution under the groups "system" and "scf" of an open h5py File, the
+JAX package's layout, so either package reads the other's files. A
+machine without h5py (the GPU machine) reads an `.npz` holding the same
+datasets under the same names instead, with the two JSON blobs (basis,
+ECP) stored as numpy unicode strings so that `np.load(allow_pickle=False)`
+reads every entry. `convert_hdf5_to_npz` makes the `.npz` once from an
+HDF5 checkpoint; h5py is imported only where a file is opened.
 
     python -m pyqmc_tpu_torch.system.io SRC.hdf5 DST.npz
 
@@ -44,13 +45,70 @@ _SCF_KEYS = ("mo_coeff_alpha", "mo_coeff_beta", "mo_energy_alpha", "mo_energy_be
              "mo_occ_alpha", "mo_occ_beta", "e_tot", "restricted")
 
 
+def _basis_to_json(basis):
+    return json.dumps({el: [[s.l] + [[e, c] for e, c in zip(s.exps, s.coeffs)] for s in shells]
+                       for el, shells in basis.items()})
+
+
+def save_system(f, mol, mf: MeanField = None):
+    """Write mol under the group "system" (and mf under "scf") of an open
+    h5py File. The basis is stored with its normalized coefficients, which
+    load_system takes as they are."""
+    g = f.require_group("system")
+
+    def put(grp, name, data):
+        if name in grp:
+            del grp[name]
+        grp.create_dataset(name, data=data)
+
+    put(g, "atom_symbols", np.array(mol.atom_symbols, dtype="S4"))
+    put(g, "atom_coords", mol.atom_coords)
+    put(g, "charge", mol.charge)
+    put(g, "spin", mol.spin)
+    put(g, "basis_json", np.bytes_(_basis_to_json(mol.basis)))
+    put(g, "ecp_json", np.bytes_(json.dumps(mol.ecp)))
+    if mol.lattice is not None:
+        put(g, "lattice", mol.lattice)
+    if mf is not None:
+        s = f.require_group("scf")
+        for i, spin in enumerate(("alpha", "beta")):
+            put(s, f"mo_coeff_{spin}", np.asarray(mf.mo_coeff[i]))
+            put(s, f"mo_energy_{spin}", np.asarray(mf.mo_energy[i]))
+            put(s, f"mo_occ_{spin}", np.asarray(mf.mo_occ[i]))
+        put(s, "e_tot", mf.e_tot)
+        put(s, "restricted", mf.restricted)
+
+
+def load_system(f):
+    """(mol, mf or None) from an open h5py File written by save_system (of
+    either package): a Cell where the file holds a lattice."""
+    g = f["system"]
+    atoms = list(zip([s.decode() for s in np.asarray(g["atom_symbols"])],
+                     np.asarray(g["atom_coords"])))
+    kwargs = dict(basis=basis_from_json(bytes(np.asarray(g["basis_json"])).decode()),
+                  ecp=json.loads(bytes(np.asarray(g["ecp_json"])).decode()) or None,
+                  charge=int(np.asarray(g["charge"])), spin=int(np.asarray(g["spin"])))
+    if "lattice" in g:
+        mol = Cell(atoms, lattice=np.asarray(g["lattice"]), **kwargs)
+    else:
+        mol = Molecule(atoms, **kwargs)
+    mf = None
+    if "scf" in f:
+        s = f["scf"]
+        pair = lambda name: (np.asarray(s[f"{name}_alpha"]), np.asarray(s[f"{name}_beta"]))
+        mf = MeanField(mol=mol, mo_coeff=pair("mo_coeff"), mo_energy=pair("mo_energy"),
+                       mo_occ=pair("mo_occ"), e_tot=float(np.asarray(s["e_tot"])),
+                       restricted=bool(np.asarray(s["restricted"])))
+    return mol, mf
+
+
 def convert_hdf5_to_npz(src: str, dst: str) -> None:
     """Copy a `save_system` HDF5 checkpoint (groups 'system', 'scf') to an
     `.npz` with string datasets as numpy unicode."""
-    import h5py
+    from ..method.hdftools import open_hdf
 
     out = {}
-    with h5py.File(src, "r") as f:
+    with open_hdf(src, "r") as f:
         g = f["system"]
         out["atom_symbols"] = np.array([s.decode() for s in np.asarray(g["atom_symbols"])])
         out["atom_coords"] = np.asarray(g["atom_coords"], dtype=np.float64)

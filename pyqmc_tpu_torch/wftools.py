@@ -1,8 +1,14 @@
-"""Wavefunction factories (counterpart of pyqmc_tpu/wftools.py:17-133).
+"""Wavefunction factories and parameter files (counterpart of
+pyqmc_tpu/wftools.py).
 
     wf, params, to_opt = generate_wf(mol, mf)   # Slater x two-body Jastrow, GPU
     wf, params, to_opt = generate_wf(mol, mf, jastrow3=True)   # x three-body Jastrow
     wf, params, to_opt = generate_wf(mol, mf, jastrow=[generate_gps_jastrow])
+
+`save_wf_params` and `read_wf_params` write and read a parameter tree under
+an h5py group, one dataset per leaf named by its path ("wf1/acoeff"), the
+JAX package's layout; `read_superposition` builds an AddWF of such files.
+h5py is imported only where a file is opened.
 
 `to_opt` freezes the Slater part (determinant and orbital coefficients)
 and the Jastrow's electron-electron cusp row, as in the JAX package: the
@@ -13,12 +19,15 @@ common workflow optimizes the Jastrow first. The layout of a product is
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .models import func3d
 from .models.jastrow import JastrowSpin
 from .models.jastrow3 import ThreeBodyJastrow
 from .models.multiply import MultiplyWF
 from .models.slater import Slater
+from .observables.transform import tree_paths, tree_unflatten
+from .utils.dtypes import complex_dtype
 
 
 def default_jastrow_basis(mol, na=4, nb=3, rcut=None):
@@ -127,10 +136,72 @@ def generate_wf(mol, mf, jastrow=True, jastrow3=False, jastrow_kws=None, mc=None
 
 
 def read_superposition(mol, mf, wf_files, coeffs, **wf_kws):
-    """A superposition of wavefunctions read from HDF5 files (the JAX
-    package's wftools.read_superposition) needs the HDF5 input and output,
-    which is not ported."""
-    raise NotImplementedError(
-        "read_superposition reads HDF5 files; the port's HDF5 output and restart (ROADMAP "
-        "queue 1 item 4) are not ported. Build AddWF(*wfs) from generate_wf's wavefunctions "
-        "instead")
+    """The superposition sum_i c_i Psi_i of wavefunctions optimized apart,
+    each generate_wf(mol, mf, **wf_kws) with the parameters of the "wf"
+    group of its HDF5 file; returns (AddWF, params, to_opt), the
+    coefficients frozen."""
+    from .method.hdftools import open_hdf
+    from .models.addwf import AddWF
+
+    wfs, param_list, to_opt = [], [], {}
+    for iwf, fname in enumerate(wf_files):
+        wf_i, params_i, to_opt_i = generate_wf(mol, mf, **wf_kws)
+        with open_hdf(fname, "r") as f:
+            if "wf" not in f:
+                raise ValueError(f"no 'wf' group in {fname}")
+            params_i = read_wf_params(f["wf"], params_i)
+        wfs.append(wf_i)
+        param_list.append(params_i)
+        to_opt[f"wf{iwf}"] = to_opt_i
+    wf = AddWF(*wfs)
+    ref = tree_paths(param_list[0])[0][1]
+    params = {f"wf{i}": p for i, p in enumerate(param_list)}
+    params["coeff"] = torch.as_tensor(np.asarray(coeffs, dtype=np.float64), device=ref.device,
+                                      dtype=ref.real.dtype)
+    to_opt["coeff"] = False
+    return wf, params, to_opt
+
+
+def _path_key(path):
+    return "/".join(str(p) for p in path)
+
+
+def save_wf_params(hdf_grp, params):
+    """Write a parameter tree under an h5py group, one dataset per leaf at
+    its path ("wf0/mo_coeff_alpha", "wf1/acoeff"), overwriting earlier
+    values."""
+    for path, leaf in tree_paths(params):
+        key = _path_key(path)
+        data = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+        if key in hdf_grp:
+            hdf_grp[key][...] = data
+        else:
+            hdf_grp.create_dataset(key, data=data)
+
+
+def read_wf_params(hdf_grp, params_template, strict=True):
+    """Parameters written by save_wf_params (of either package) in the
+    template's tree, each leaf on the template's device in its precision
+    (complex where the file's is). strict: raise where the file holds
+    datasets the template has not got (a file of a wavefunction with more
+    factors would otherwise lose them silently)."""
+    leaves, consumed = [], set()
+    for path, leaf in tree_paths(params_template):
+        key = _path_key(path)
+        arr = np.asarray(hdf_grp[key])
+        if arr.shape != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
+        consumed.add(key)
+        dtype = complex_dtype(leaf.dtype) if np.iscomplexobj(arr) else leaf.dtype
+        leaves.append(torch.as_tensor(arr).to(device=leaf.device, dtype=dtype))
+    if strict:
+        stored = []
+        hdf_grp.visit(lambda name: stored.append(name) if hasattr(hdf_grp[name], "shape")
+                      else None)
+        extra = sorted(set(stored) - consumed)
+        if extra:
+            raise ValueError(
+                f"parameter file holds groups the wavefunction does not: {extra} — rebuild the "
+                "wf with the flags (jastrow3, jastrow_kws, ...) used when it was saved, or pass "
+                "strict=False to drop them")
+    return tree_unflatten(params_template, leaves)

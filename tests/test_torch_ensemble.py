@@ -138,8 +138,8 @@ def test_state_gradient_and_step_match_jax():
 def test_excited_setup_and_ensemble_on_cpu():
     """h2o_excited_setup on the CPU: the states' parameters and the
     superposition's transform; sample_overlap's keys and a finite
-    optimize_ensemble iteration that moves det_coeff; mesh= and hdf_file=
-    raise, naming what is not ported."""
+    optimize_ensemble iteration that moves det_coeff; mesh= raises, naming
+    what is not ported (hdf_file= is held in tests/test_torch_io.py)."""
     mol, wfs, params_list, configs, acc, ens = h2o_excited_setup(4, device="cpu")
     assert ens["transforms"][0] is None and ens["transforms"][1].nparams == 2
     assert tuple(ens["params_list"][1]["wf0"]["det_coeff"].tolist()) == (0.5, 0.8)
@@ -155,6 +155,3 @@ def test_excited_setup_and_ensemble_on_cpu():
     assert not np.allclose(to_np(plist[1]["wf0"]["det_coeff"]), [0.5, 0.8])
     with pytest.raises(NotImplementedError, match="item 8"):
         make_overlap_block(wfs, configs.geometry, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ensemble.optimize_ensemble(**ens, configs=configs, energy_acc=acc["energy"],
-                                   hdf_file="x.hdf5")

@@ -417,9 +417,6 @@ def test_line_minimization_on_cpu():
     np.testing.assert_allclose((tt.serialize(params) - tt.serialize(tp)).numpy(), step,
                                atol=1e-12)
     assert cfg.positions.shape == (16, 8, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tlinemin.line_minimization(twf, tp, configs, tt, EnergyAccumulator(tmol),
-                                   hdf_file="opt.h5")
 
 
 # --- (9) the accumulators' arguments and the factories ---------------------------
@@ -440,7 +437,7 @@ def test_energy_accumulator_takes_the_given_ewald():
     assert sr.energy_acc.ecp_acc is not None
 
 
-def test_factories():
+def test_factories(tmp_path):
     (_, _), (tmol, tmf) = h2o_pair()
     wf, params, to_opt = generate_wf(tmol, tmf, device="cpu")
     assert to_opt["wf0"] == {"det_coeff": False, "mo_coeff_alpha": False, "mo_coeff_beta": False}
@@ -491,7 +488,23 @@ def test_factories():
         for a, b in zip(to_np(tp), to_np(jp)):
             np.testing.assert_array_equal(a, b)
     assert twf.make_params("cpu")["wf1"]["f"].shape == ()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        read_superposition(tmol, tmf, ["a.hdf5"], [1.0])
+    # read_superposition of two parameter files (written by the port) equals
+    # the JAX package's of the same files
+    import h5py
+
+    from pyqmc_tpu.wftools import read_superposition as j_read_superposition
+    from pyqmc_tpu_torch.wftools import save_wf_params
+
+    files = [str(tmp_path / f"wf{i}.h5") for i in range(2)]
+    for i, name in enumerate(files):
+        _, p_i, _ = generate_wf(tmol, tmf, device="cpu")
+        p_i["wf1"]["acoeff"] = p_i["wf1"]["acoeff"] + 0.1 * (i + 1)
+        with h5py.File(name, "w") as f:
+            save_wf_params(f.require_group("wf"), p_i)
+    swf, sp, sto = read_superposition(tmol, tmf, files, [0.6, 0.8], device="cpu")
+    _, jsp, jsto = j_read_superposition(jmol, jmf, files, [0.6, 0.8])
+    assert len(swf.wfs) == 2 and sto["coeff"] is False and set(sto) == set(jsto)
+    for a, b in zip(to_np(sp), to_np(jsp)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
     sl_only, p_only, t_only = generate_wf(tmol, tmf, jastrow=False, device="cpu")
     assert set(p_only) == set(t_only) == {"det_coeff", "mo_coeff_alpha", "mo_coeff_beta"}

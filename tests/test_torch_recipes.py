@@ -2,13 +2,15 @@
 package's pyqmc_tpu/recipes.py: the set-up from a Molecule on H2/STO-3G
 (SCF, wavefunction parameters, local energies on shared walkers, float64),
 generate_accumulators' flags, OPTIMIZE -> VMC(params=) -> DMC end to end on
-device="cpu" with the JAX recipes' record and block keys, and the paths
-that need h5py or the walker mesh, which raise.
+device="cpu" with the JAX recipes' record and block keys, the HDF5 paths
+(output=, load_parameters=, a chkfile path, ci_checkfile=, read_mc_output,
+read_opt), and the walker mesh, which raises.
 
 No JAX VMC or DMC block is compiled here: the JAX side's recipes are
 compared through their set-up and one local-energy evaluation.
 """
 
+import h5py
 import numpy as np
 import pytest
 import torch
@@ -127,24 +129,107 @@ def test_recipes_default_to_the_gpu():
         recipes.VMC(Molecule(H2, basis="sto-3g"), nconfig=4, nblocks=1)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda mol: recipes.OPTIMIZE(mol, output="opt.h5", device="cpu"), "item 4"),
-    (lambda mol: recipes.VMC(mol, output="vmc.h5", device="cpu"), "item 4"),
-    (lambda mol: recipes.VMC(mol, load_parameters="opt.h5", device="cpu"), "item 4"),
-    (lambda mol: recipes.DMC(mol, load_parameters="opt.h5", device="cpu"), "item 4"),
-    (lambda mol: recipes.VMC("scf.chk", device="cpu"), "item 4"),
-    (lambda mol: recipes.DMC(mol, ci_checkfile="ci.chk", device="cpu"), "item 4"),
-    (lambda mol: recipes.read_mc_output("vmc.h5"), "item 4"),
-    (lambda mol: recipes.read_opt("opt.h5"), "item 4"),
-    (lambda mol: recipes.VMC(mol, mesh=object(), device="cpu"), "item 8"),
-    (lambda mol: recipes.DMC(mol, mesh=object(), device="cpu"), "item 8"),
-], ids=["optimize-output", "vmc-output", "vmc-load", "dmc-load", "chkfile", "ci-checkfile",
-        "read-mc-output", "read-opt", "vmc-mesh", "dmc-mesh"])
-def test_unported_paths_raise(call, item):
-    """The HDF5 paths and the walker mesh raise NotImplementedError naming
-    their ROADMAP queue 1 item, before any work."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+@pytest.mark.parametrize("call", [
+    lambda mol: recipes.VMC(mol, mesh=object(), device="cpu"),
+    lambda mol: recipes.DMC(mol, mesh=object(), device="cpu"),
+], ids=["vmc-mesh", "dmc-mesh"])
+def test_unported_paths_raise(call):
+    """The walker mesh raises NotImplementedError naming its ROADMAP queue
+    1 item, before any work."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         call(Molecule(H2, basis="sto-3g"))
+
+
+def _opt_file(path):
+    """OPTIMIZE(output=) on H2/STO-3G, 8 walkers, one iteration of 2 x 2 SR
+    steps; returns its parameters."""
+    _, params, records = recipes.OPTIMIZE(Molecule(H2, basis="sto-3g"), output=path, nconfig=8,
+                                          max_iterations=1, vmc_blocks=2, vmc_steps_per_block=2,
+                                          device="cpu")
+    assert len(records) == 1
+    return params
+
+
+def _h2_chkfiles(tmp_path):
+    """A pyscf-layout SCF chkfile of H2/STO-3G and a CAS(2e,2o) checkfile
+    (JAX tests/unit/test_chkfile.py's writers)."""
+    from pyqmc_tpu.system.scf import run_scf as jrun_scf
+
+    from .unit.test_chkfile import _mol_json, _write_chk
+
+    mol = JMolecule(H2, basis="sto-3g")
+    mf = jrun_scf(mol)
+    chk, ci = str(tmp_path / "scf.chk"), str(tmp_path / "ci.chk")
+    text = _mol_json(mol.atom_symbols, mol.atom_coords, "sto-3g")
+    _write_chk(chk, text, scf={"e_tot": mf.e_tot, "mo_energy": np.asarray(mf.mo_energy[0]),
+                               "mo_coeff": np.asarray(mf.mo_coeff[0]),
+                               "mo_occ": 2.0 * np.asarray(mf.mo_occ[0])})
+    _write_chk(ci, text, ci_group="mcscf", ci_dict={
+        "ci": np.array([[0.95, 0.0], [0.0, -np.sqrt(1 - 0.95**2)]]), "ncas": 2,
+        "nelecas": np.array([1, 1]), "ncore": 0, "mo_coeff": np.asarray(mf.mo_coeff[0])})
+    return chk, ci
+
+
+def _same_blocks(a, b):
+    assert [d["energytotal"] for d in a] == [d["energytotal"] for d in b]
+
+
+def _case(name, tmp_path):
+    mol = Molecule(H2, basis="sto-3g")
+    small = dict(nconfig=8, nblocks=2, nsteps_per_block=2, device="cpu", seed=3)
+    opt = str(tmp_path / "opt.h5")
+    if name == "optimize-output":
+        params = _opt_file(opt)
+        with h5py.File(opt, "r") as f:
+            assert {"energy", "energy_err", "gnorm", "tau", "x", "configs", "wf"} <= set(f)
+            np.testing.assert_array_equal(f["wf/wf1/acoeff"][...], params["wf1"]["acoeff"])
+    elif name in ("vmc-output", "read-mc-output"):
+        out = str(tmp_path / "vmc.h5")
+        data, _ = recipes.VMC(mol, output=out, **small)
+        again, _ = recipes.VMC(mol, output=out, **small)  # continues the file
+        assert [d["block"] for d in again] == [2, 3]
+        summary = recipes.read_mc_output(out, warmup=0, reblocks=2)
+        expect = jrecipes.read_mc_output(out, warmup=0, reblocks=2)
+        assert set(summary) == set(expect)
+        for k in summary:
+            np.testing.assert_allclose(summary[k], expect[k], rtol=1e-12)
+    elif name in ("vmc-load", "dmc-load"):
+        params = _opt_file(opt)
+        run = recipes.VMC if name == "vmc-load" else recipes.DMC
+        kw = {} if name == "vmc-load" else {"warmup_vmc_blocks": 1}
+        _same_blocks(run(mol, load_parameters=opt, **small, **kw)[0],
+                     run(mol, params=params, **small, **kw)[0])
+    elif name == "read-opt":
+        _opt_file(opt)
+        got, expect = recipes.read_opt(opt), jrecipes.read_opt(opt)
+        assert set(got) == set(expect) == {"energy", "energy_err", "gnorm", "tau"}
+        for k in got:
+            np.testing.assert_array_equal(got[k], expect[k])
+    elif name == "chkfile":
+        chk, _ = _h2_chkfiles(tmp_path)
+        tmol, tmf, _ = recipes._resolve_system(chk)
+        jmol, jmf, _ = jrecipes._resolve_system(chk)
+        np.testing.assert_allclose(tmf.mo_coeff[0], jmf.mo_coeff[0], rtol=0, atol=1e-12)
+        data, _ = recipes.VMC(chk, **small)
+        assert all(np.isfinite(d["energytotal"]) for d in data)
+    else:  # ci-checkfile
+        chk, ci = _h2_chkfiles(tmp_path)
+        _, _, wf, _, _, _, _ = recipes._setup(mol, ci_checkfile=ci, nconfig=8, device="cpu")
+        assert wf.wfs[0].expansion.map_up.shape == (2,)
+        blocks, _, _ = recipes.DMC(chk, ci_checkfile=ci, warmup_vmc_blocks=1, **small)
+        assert all(np.isfinite(b["energytotal"]) for b in blocks)
+
+
+@pytest.mark.parametrize("name", ["optimize-output", "vmc-output", "vmc-load", "dmc-load",
+                                  "chkfile", "ci-checkfile", "read-mc-output", "read-opt"])
+def test_hdf5_paths(name, tmp_path):
+    """The recipes' file paths on the CPU: OPTIMIZE(output=) writes the
+    line minimization's rows and the parameters, VMC(output=) writes and
+    continues its file, load_parameters= gives the chain of params= with
+    the same parameters, a chkfile path (and ci_checkfile=) builds the
+    system the JAX package's _resolve_system builds, and read_mc_output and
+    read_opt equal the JAX package's on the port's files."""
+    _case(name, tmp_path)
 
 
 def test_empty_spin_channel_matches_jax():

@@ -78,8 +78,10 @@ def test_port_imports_no_jax():
         "          'observables.ewald', 'system.supercell', 'wftools', 'method.twist_average',\n"
         "          'api', 'recipes', 'system.elements', 'system.basis', 'system.tpu1_library',\n"
         "          'system.integrals', 'system.ecp_integrals', 'system.scf', 'system.casci',\n"
-        "          'system.ci_import'):\n"
+        "          'system.ci_import', 'system.chkfile', 'system.pyscf_adapter',\n"
+        "          'method.hdftools', 'utils.profiling'):\n"
         "    assert 'pyqmc_tpu_torch.' + m in sys.modules, m\n"
+        "assert 'h5py' not in sys.modules\n"
         "print(len([k for k in sys.modules if k.startswith('pyqmc_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
