@@ -24,7 +24,10 @@ the ensemble optimization); and the front door: the molecular front end
 the host, the recipes OPTIMIZE, VMC and DMC on the card from its SCF, and
 the He and H-atom anchors; the VMC, DMC and optimizer restart from
 checkpoint contents and their profiler traces, and the complex-orbital
-optimization.
+optimization; and the walker mesh (one NCCL rank, two gloo ranks sharing
+the card) through VMC, DMC with its global comb, the line minimization,
+the overlap sampling, the VMC recipe and the diamond's VMC; and the slab
+Ewald sum.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -423,6 +426,33 @@ optimization.
      (dpidpjI, S and the step) in float32 against float64 on the same
      walkers printed. Phases 34-35 take at most 60 s; the total is printed
      beside phase 17's time, the host's yardstick
+  36. the walker mesh (parallel/mesh.py) on H2O at 2048 walkers in all:
+     (a) walker_mesh() in this process, one rank over NCCL: VMC 2 x 10 and
+     rundmc 1 warm-up + 2 x 10, each equal to the same run without a mesh
+     bit for bit, launches exact (10 K1 and 10 K2 per VMC block; 10 K4, 10
+     K5 and 11 K2 per DMC block); (b) two ranks sharing the card over gloo
+     (spawned processes, 1024 walkers each, FileStore rendezvous) run VMC 2
+     x 10 and rundmc 1 + 2 x 10 with the global comb against one process of
+     2048 walkers fed their concatenated streams
+     (tests/torch_mesh_ranks.py:emulated_ranks, which imports no JAX): VMC
+     positions within 1e-5 (0 expected), block energies 1e-5 relative,
+     after the last comb at most 1% of walkers with another parent, DMC
+     energies within 1e-4 Ha, every weight of the population equal, each
+     rank's launches exact; the gloo collectives that take CUDA tensors
+     printed; (c) one line_minimization iteration (4 x 10 SR steps) on the
+     two ranks in float32 and in float64: the parameters equal on both
+     ranks, within 1e-5 relative of the one-process run in float64 (the
+     float32 distance printed: the SR solve carries the float32 averages'
+     reduction-order differences through S + 1e-3); (d) the one-rank mesh
+     through sample_overlap 1 x 10 (10 K2, 10 K3), the VMC recipe 2 x 10
+     and the diamond's VMC 1 x 10 at 500 walkers (10 K7, 20 K6, 40 K3),
+     each equal to its run without a mesh bit for bit; the walker-steps/s
+     of (a) and (b) printed
+  37. Ewald2D on the card: the NaCl monolayer's ii_const / 2 equal to
+     -1.6155426267 (1e-8 relative), and the energies of 2048 random
+     walkers of 4 electrons within 0.5 bohr of its plane against psi_host
+     summed on the host: 1e-9 in float64, 1e-5 relative to the largest in
+     float32. Phases 36-37 take at most 60 s
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -645,6 +675,20 @@ COMPLEX_SEED = 17
 COMPLEX_REF = {"e_vmc": -17.168437806445134, "sem_vmc": 0.0030806459486583853,
                "spread_vmc": 0.0061612918973167705, "e_first": -16.261685685878643,
                "e_last": -17.147101696302954}
+# the walker mesh (phase 36): H2O (h2o_setup), 2048 walkers in all, 10-step blocks
+MESH_VMC_NBLOCKS, MESH_DMC_WARMUP, MESH_DMC_NBLOCKS = 2, 1, 2
+MESH_SR_BLOCKS = 4  # (c) one line_minimization iteration of 4 x 10 SR steps
+MESH_OVERLAP_NSTEPS = 10  # (d) one sample_overlap block
+MESH_RANK_TIMEOUT = 600.0  # s the parent waits for the two ranks of (b)-(c)
+MESH_POS_ATOL = 1e-5  # (b) VMC positions of two ranks against one process (0 expected)
+MESH_VMC_RTOL = 1e-5  # (b) VMC block energies, relative
+MESH_DMC_ATOL = 1e-4  # (b) DMC block energies, Ha
+MESH_PARENT_SHARE = 0.01  # (b) walkers with another parent after the last comb, at most
+MESH_OPT_RTOL = 1e-5  # (c) float64 parameters against one process, relative to the largest
+# the slab Ewald sum (phase 37): the NaCl monolayer (square, 2 x 2 ions, nearest neighbours
+# 1 bohr apart), its Madelung constant per ion pair, and random walkers near its plane
+NACL_MADELUNG = 1.6155426267
+EWALD2D_NCONF, EWALD2D_NELEC = 2048, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
 
@@ -3878,23 +3922,445 @@ def complex_opt_phase(t_start, card, counters, mf):
     return out
 
 
+def kernel_counters():
+    """{kernel: its wrapper's launch counter}."""
+    from pyqmc_tpu_torch.ops import ecp_energy, gto_kernels, move_sweep, move_sweep_pbc
+    from pyqmc_tpu_torch.ops import tmove_sweep
+
+    return {"vmc_sweep": move_sweep.LAUNCHES, "ecp_energy": ecp_energy.LAUNCHES,
+            "dmc_sweep": move_sweep.DMC_LAUNCHES, "tmove_sweep": tmove_sweep.LAUNCHES,
+            "value_mo": gto_kernels.VALUE_MO_LAUNCHES,
+            "gto_eval": gto_kernels.EVAL_GTO2_LAUNCHES, "pbc_sweep": move_sweep_pbc.LAUNCHES,
+            "pbc_dmc_sweep": move_sweep_pbc.DMC_LAUNCHES}
+
+
+def mesh_runs(mesh, counters, nconf):
+    """Phase 36 (b)-(c)'s runs on H2O, `nconf` walkers in all, under `mesh`
+    (each rank its share) or without one: VMC MESH_VMC_NBLOCKS x 10,
+    rundmc MESH_DMC_WARMUP + MESH_DMC_NBLOCKS x 10 from its walkers, one
+    line_minimization iteration of MESH_SR_BLOCKS x 10 SR steps in the
+    walkers' float32 and one in float64 (the SR solve carries the float32
+    averages' reduction-order differences through S + 1e-3: about 2e-3 of
+    the parameters on the H100, so (c)'s gate reads the float64 one).
+    Returns the whole population's results on the host, each run's
+    launches and seconds."""
+    from pyqmc_tpu_torch.configs import Configs
+    from pyqmc_tpu_torch.entry import h2o_setup
+    from pyqmc_tpu_torch.method.dmc import rundmc
+    from pyqmc_tpu_torch.method.linemin import line_minimization
+    from pyqmc_tpu_torch.method.vmc import vmc
+    from pyqmc_tpu_torch.observables.transform import LinearTransform
+    from pyqmc_tpu_torch.system.io import load_npz
+    from pyqmc_tpu_torch.utils.profiling import sync
+    from pyqmc_tpu_torch.wftools import generate_wf
+
+    device = None if mesh is None else mesh.device  # None: the entry points' default, the GPU
+    out = {}
+
+    def gen(seed):
+        return torch.Generator(device=configs.positions.device).manual_seed(seed)
+
+    def counted(name, run):
+        for c in counters.values():
+            c.reset()
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        out[name + "_seconds"] = time.perf_counter() - t0
+        out[name + "_launches"] = {k: c.n for k, c in counters.items()}
+        return res
+
+    mol, wf, params, configs, acc = h2o_setup(nconf, device=device)
+    data, vcfg = counted("vmc", lambda: vmc(
+        wf, params, configs, nblocks=MESH_VMC_NBLOCKS, nsteps_per_block=10, accumulators=acc,
+        generator=gen(91), mesh=mesh))
+    out["vmc"] = {"energies": [b["energytotal"] for b in data],
+                  "acceptance": [b["acceptance"] for b in data],
+                  "positions": vcfg.positions.cpu().numpy()}
+    blocks, dcfg, weights = counted("dmc", lambda: rundmc(
+        wf, params, vcfg, nblocks=MESH_DMC_NBLOCKS, nsteps_per_block=10, tstep=DMC_TSTEP,
+        energy_acc=acc["energy"], warmup_vmc_blocks=MESH_DMC_WARMUP, generator=gen(93),
+        mesh=mesh))
+    out["dmc"] = {"energies": [b["energytotal"] for b in blocks],
+                  "block_weights": [b["weight"] for b in blocks],
+                  "positions": dcfg.positions.cpu().numpy(), "weights": weights.cpu().numpy()}
+    lmol, lmf = load_npz()
+    for name, dtype in (("linemin", torch.float32), ("linemin64", torch.float64)):
+        lwf, lp0, to_opt = generate_wf(lmol, lmf, device=device, dtype=dtype)
+        lt = LinearTransform(lp0, to_opt)
+        lcfg = Configs.create(vcfg.positions.to(dtype), vcfg.geometry, wrap=vcfg.wrap)
+        lp, _, recs = counted(name, lambda: line_minimization(
+            lwf, lp0, lcfg, lt, acc["energy"], generator=gen(95), max_iterations=1,
+            vmc_blocks=MESH_SR_BLOCKS, vmc_steps_per_block=10, mesh=mesh))
+        out[name] = {"x": lt.serialize(lp).double().cpu().numpy(),
+                     "x0": lt.serialize(lp0).double().cpu().numpy(),
+                     "energy": recs[0]["energy"], "tau": recs[0]["tau"],
+                     "line_energies": np.asarray(recs[0]["line_energies"])}
+    return out
+
+
+def comb_time(mesh, nconf, reps=10):
+    """(ms, bytes) of one global comb (method/dmc.py:branch with the mesh)
+    of `nconf` H2O walkers in all, float32, the mean over `reps` after one
+    warm-up: its gathers' buffers hold every rank's weights and positions
+    (float32) and wrap counts (int32)."""
+    from pyqmc_tpu_torch.method.dmc import branch
+    from pyqmc_tpu_torch.utils.profiling import sync
+
+    n = nconf // mesh.size
+    g = torch.Generator(device=mesh.device).manual_seed(5)
+    pos = torch.randn((n, 8, 3), generator=g, device=mesh.device)
+    wrap = torch.zeros((n, 8, 3), dtype=torch.int32, device=mesh.device)
+    w = torch.rand((n,), generator=g, device=mesh.device) + 0.5
+    u = torch.rand((), generator=g, device=mesh.device)
+    branch(pos, wrap, w, u, mesh=mesh)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        branch(pos, wrap, w, u, mesh=mesh)
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3, nconf * (1 + 24 + 24) * 4
+
+
+def gloo_cuda_table(mesh):
+    """Which collectives the gloo backend takes on CUDA tensors on this card:
+    {collective: "ok", or the error's type and first line}. Each call is
+    made alike on every rank, in a group of its own with a 30 s timeout."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pyqmc_tpu_torch.utils.profiling import sync
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=30))
+    x = torch.arange(4, device=mesh.device, dtype=torch.float32)
+    n = mesh.size
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+        "reduce": lambda: dist.reduce(x.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x,
+                                              group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * n, device=mesh.device), x, group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // n, device=mesh.device), x.clone(), group=group),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x, group=group),
+    }
+    table = {}
+    for name, call in calls.items():
+        try:
+            call()
+            sync()
+            table[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:  # the table records it
+            table[name] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+    dist.destroy_process_group(group)
+    return table
+
+
+def _mesh_rank(rank, store, out_dir, nconf):
+    """One of phase 36 (b)-(c)'s two ranks sharing the card over gloo; waits
+    for the parent's go (the file out_dir/go) before its timed runs."""
+    import os
+
+    import torch.distributed as dist
+
+    from pyqmc_tpu_torch.parallel.mesh import sum_over, walker_mesh
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    mesh = walker_mesh(2)
+    sum_over(mesh, torch.zeros(1, device=mesh.device))  # the pair's first collective, untimed
+    go = os.path.join(out_dir, "go")
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+    while not os.path.exists(go):
+        check(time.perf_counter() < deadline, f"phase 36 rank {rank}: no go from the parent")
+        time.sleep(0.05)
+    res = mesh_runs(mesh, kernel_counters(), nconf)
+    res["mesh"] = [mesh.rank, mesh.size, mesh.backend, str(mesh.device)]
+    res["comb_ms"], res["comb_bytes"] = comb_time(mesh, nconf)
+    res["gloo_cuda"] = gloo_cuda_table(mesh)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_phases(t_start, card, counters):
+    """Phase 36: the walker mesh on H2O at 2048 walkers, float32 (the module
+    docstring): (a) a one-rank NCCL mesh against no mesh, bit for bit; (b)
+    two ranks sharing the card over gloo against one process on their
+    streams; (c) one line minimization iteration on the two ranks; (d)
+    sample_overlap, the VMC recipe and the diamond's VMC under the one-rank
+    mesh against no mesh. Returns the launch counts."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pyqmc_tpu_torch import recipes
+    from pyqmc_tpu_torch.entry import diamond_setup, h2o_excited_setup, h2o_setup
+    from pyqmc_tpu_torch.method.dmc import rundmc
+    from pyqmc_tpu_torch.method.sample_many import sample_overlap
+    from pyqmc_tpu_torch.method.vmc import vmc
+    from pyqmc_tpu_torch.parallel.mesh import sum_over, walker_mesh
+    from pyqmc_tpu_torch.system.io import load_npz
+    from pyqmc_tpu_torch.utils.profiling import sync
+    from tests.torch_mesh_ranks import emulated_ranks
+
+    none = {k: 0 for k in counters}
+    out = {}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    def gen(seed):
+        return torch.Generator(device=configs.positions.device).manual_seed(seed)
+
+    def same_blocks(a, b):
+        return len(a) == len(b) and all(
+            set(x) == set(y) and all(np.array_equal(x[k], y[k]) for k in x if k != "block time")
+            for x, y in zip(a, b))
+
+    def both(label, run, expect):
+        """run(mesh) without a mesh and under the one-rank mesh: the same
+        blocks and walkers, bit for bit, and the same launches, `expect`."""
+        res = {}
+        for tag, m in (("none", None), ("mesh", mesh1)):
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            blocks, walkers = run(m)
+            sync()
+            res[tag] = (blocks, walkers, read_counts(), time.perf_counter() - t0)
+        (bm, wm, lm, tm), (bn, wn, ln, tn) = res["mesh"], res["none"]
+        check(same_blocks(bm, bn), f"phase 36 {label}: the one-rank mesh's blocks differ from "
+              "no mesh's")
+        check(all(torch.equal(x, y) for x, y in zip(wm, wn)),
+              f"phase 36 {label}: the one-rank mesh's walkers differ from no mesh's")
+        check(lm == ln == {**none, **expect}, f"phase 36 {label}: launches {lm} and {ln}, not "
+              f"{expect}")
+        out["phase36" + label.translate({ord("("): None, ord(")"): None}).replace(" ", "_")
+            .lower()] = lm
+        print(f"phase 36 {label}: one-rank NCCL mesh equal to no mesh bit for bit, launches "
+              f"{json.dumps({k: v for k, v in lm.items() if v})}; {tm:.2f} s and {tn:.2f} s",
+              flush=True)
+        return bm, tm
+
+    print(f"phase 36 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    # (a) one rank over NCCL
+    mesh1 = walker_mesh()
+    check((mesh1.size, mesh1.backend) == (1, "nccl"),
+          f"phase 36: walker_mesh() made {mesh1}, not one NCCL rank")
+    sum_over(mesh1, torch.zeros(1, device=mesh1.device))  # the communicator's start, untimed
+    mol, wf, params, configs, acc = h2o_setup(NCONF)
+    nv, nd = MESH_VMC_NBLOCKS * 10, MESH_DMC_NBLOCKS * 10
+
+    def run_vmc(m):
+        data, cfg = vmc(wf, params, configs, nblocks=MESH_VMC_NBLOCKS, nsteps_per_block=10,
+                        accumulators=acc, generator=gen(101), mesh=m)
+        return data, (cfg.positions, cfg.wrap)
+
+    vblocks, t_vmc = both("(a) VMC", run_vmc, {"vmc_sweep": nv, "ecp_energy": nv})
+
+    def run_dmc(m):
+        data, cfg, w = rundmc(wf, params, configs, nblocks=MESH_DMC_NBLOCKS, nsteps_per_block=10,
+                              tstep=DMC_TSTEP, energy_acc=acc["energy"],
+                              warmup_vmc_blocks=MESH_DMC_WARMUP, generator=gen(103), mesh=m)
+        return data, (cfg.positions, cfg.wrap, w)
+
+    nw = MESH_DMC_WARMUP * 10
+    dblocks, _ = both("(a) DMC", run_dmc, {"vmc_sweep": nw, "dmc_sweep": nd, "tmove_sweep": nd,
+                                           "ecp_energy": nw + 1 + nd + MESH_DMC_NBLOCKS})
+    rate_a = NCONF * nv / t_vmc
+    comb_a, comb_bytes = comb_time(mesh1, NCONF)
+    print(f"phase 36 (a): VMC E={[round(b['energytotal'], 6) for b in vblocks]}, DMC E="
+          f"{[round(b['energytotal'], 6) for b in dblocks]}; VMC {rate_a:.4e} walker-steps/s on "
+          f"one rank; the global comb of {NCONF} walkers ({comb_bytes} bytes gathered) "
+          f"{comb_a:.3f} ms; {card}", flush=True)
+
+    # (b)-(c) two ranks sharing the card over gloo, spawned now that the kernels are built
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_mesh_rank, args=(os.path.join(tmp, "store"), tmp, NCONF),
+                                 nprocs=2, join=False, start_method="spawn")
+        try:
+            # while the ranks start: one process on their concatenated streams
+            with emulated_ranks(2):
+                ref = mesh_runs(None, counters, NCONF)
+            open(os.path.join(tmp, "go"), "w").close()
+            deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+            while not ctx.join(timeout=5.0):
+                check(time.perf_counter() < deadline, "phase 36: the two ranks did not end in "
+                      f"{MESH_RANK_TIMEOUT:.0f} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        r0, r1 = (torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                  for r in range(2))
+    check(r0["mesh"][:3] == [0, 2, "gloo"] and r1["mesh"][:3] == [1, 2, "gloo"]
+          and r0["mesh"][3] == r1["mesh"][3], f"phase 36: the ranks' meshes {r0['mesh']}, "
+          f"{r1['mesh']}")
+    for name in ("vmc", "dmc", "linemin", "linemin64"):
+        for k, v in r0[name].items():
+            check(np.array_equal(v, r1[name][k]), f"phase 36 (b): the ranks' {name} {k} differ")
+    dv = float(np.max(np.abs(r0["vmc"]["positions"] - ref["vmc"]["positions"])))
+    ev = max(abs(a - b) / abs(b) for a, b in zip(r0["vmc"]["energies"], ref["vmc"]["energies"]))
+    moved = np.max(np.abs(r0["dmc"]["positions"] - ref["dmc"]["positions"]), axis=(1, 2))
+    share = float(np.mean(moved > 1e-4))
+    ed = max(abs(a - b) for a, b in zip(r0["dmc"]["energies"], ref["dmc"]["energies"]))
+    w = r0["dmc"]["weights"]
+    for r, res in enumerate((r0, r1)):
+        check(res["vmc_launches"] == {**none, "vmc_sweep": nv, "ecp_energy": nv},
+              f"phase 36 (b): rank {r}'s VMC launched {res['vmc_launches']}")
+        check(res["dmc_launches"] == {**none, "vmc_sweep": nw, "dmc_sweep": nd, "tmove_sweep": nd,
+                                      "ecp_energy": nw + 1 + nd + MESH_DMC_NBLOCKS},
+              f"phase 36 (b): rank {r}'s DMC launched {res['dmc_launches']}")
+        for name in ("linemin", "linemin64"):
+            check(res[name + "_launches"] == {**none, "vmc_sweep": MESH_SR_BLOCKS * 10,
+                                              "ecp_energy": MESH_SR_BLOCKS * 10 + 7},
+                  f"phase 36 (c): rank {r}'s {name} launched {res[name + '_launches']}")
+    out.update({"phase36b_rank0_vmc": r0["vmc_launches"], "phase36b_rank0_dmc":
+                r0["dmc_launches"], "phase36c_rank0_linemin": r0["linemin_launches"],
+                "phase36c_rank0_linemin64": r0["linemin64_launches"]})
+    rate_b = NCONF * nv / max(r0["vmc_seconds"], r1["vmc_seconds"])
+    print(f"phase 36 (b): two gloo ranks of {NCONF // 2} walkers on {r0['mesh'][3]} against one "
+          f"process of {NCONF} on their streams: VMC positions {dv:.2e} apart (gate "
+          f"{MESH_POS_ATOL}), block energies {ev:.2e} relative (gate {MESH_VMC_RTOL}): "
+          f"{[round(e, 6) for e in r0['vmc']['energies']]} and "
+          f"{[round(e, 6) for e in ref['vmc']['energies']]}; DMC after the global comb "
+          f"{share:.4f} of the walkers with another parent (gate {MESH_PARENT_SHARE}), block "
+          f"energies {ed:.2e} Ha apart (gate {MESH_DMC_ATOL}): "
+          f"{[round(e, 6) for e in r0['dmc']['energies']]} and "
+          f"{[round(e, 6) for e in ref['dmc']['energies']]}; the weights after the last comb "
+          f"{'all' if np.all(w == w[0]) else 'not all'} {w[0]:.6f}; VMC {rate_b:.4e} walker-steps/s "
+          f"on two ranks ({r0['vmc_seconds']:.2f} s and {r1['vmc_seconds']:.2f} s, one process "
+          f"{ref['vmc_seconds']:.2f} s), DMC {r0['dmc_seconds']:.2f} s; {card}", flush=True)
+    print(f"phase 36 (b): the global comb of {NCONF} walkers over the two gloo ranks "
+          f"({r0['comb_bytes']} bytes gathered) {r0['comb_ms']:.3f} and {r1['comb_ms']:.3f} ms; "
+          f"gloo collectives on CUDA tensors: {json.dumps(r0['gloo_cuda'])}", flush=True)
+    check(dv <= MESH_POS_ATOL and ev <= MESH_VMC_RTOL, "phase 36 (b): the two ranks' VMC left "
+          f"the one-process run's (positions {dv}, energies {ev} relative)")
+    check(share <= MESH_PARENT_SHARE and ed <= MESH_DMC_ATOL, "phase 36 (b): the two ranks' DMC "
+          f"left the one-process run's ({share} of the walkers, energies {ed} Ha)")
+    check(np.all(w == w[0]), "phase 36 (b): the comb left the population's weights unequal")
+    dx = {}
+    for name in ("linemin", "linemin64"):
+        lm, lr = r0[name], ref[name]
+        dx[name] = float(np.max(np.abs(lm["x"] - lr["x"])) / np.max(np.abs(lr["x"])))
+        check(not np.array_equal(lm["x"], lm["x0"]), f"phase 36 (c): {name}'s parameters did "
+              "not move")
+        print(f"phase 36 (c): one line minimization iteration ({MESH_SR_BLOCKS} x 10 SR steps, "
+              f"{'float64' if name == 'linemin64' else 'float32'}) on the two ranks: parameters "
+              f"equal on both ranks, {dx[name]:.2e} relative from one process; E "
+              f"{lm['energy']:.6f} and {lr['energy']:.6f}, tau {lm['tau']} and {lr['tau']}; "
+              f"{r0[name + '_seconds']:.2f} s", flush=True)
+    check(dx["linemin64"] <= MESH_OPT_RTOL, f"phase 36 (c): the two ranks' float64 parameters "
+          f"are {dx['linemin64']} relative from the one-process run's (gate {MESH_OPT_RTOL})")
+
+    # (d) the one-rank NCCL mesh through sample_overlap, the VMC recipe and the diamond
+    _, wfs, plist, xcfg, xacc, _ = h2o_excited_setup(NCONF)
+
+    def run_overlap(m):
+        data, cfg = sample_overlap(wfs, plist, xcfg, gen(107), nblocks=1,
+                                   nsteps=MESH_OVERLAP_NSTEPS, energy_acc=xacc["energy"], mesh=m)
+        return data, (cfg.positions,)
+
+    # one K2 (state 0's energy) and one K3 (state 1's flat ECP chain) per step
+    both("(d) sample_overlap", run_overlap, {"ecp_energy": MESH_OVERLAP_NSTEPS,
+                                             "value_mo": MESH_OVERLAP_NSTEPS})
+    rmol, rmf = load_npz()
+
+    def run_recipe(m):
+        data, cfg = recipes.VMC(rmol, mf=rmf, nconfig=NCONF, nblocks=MESH_VMC_NBLOCKS,
+                                nsteps_per_block=10, seed=109, mesh=m)
+        return data, (cfg.positions,)
+
+    both("(d) VMC recipe", run_recipe, {"vmc_sweep": nv, "ecp_energy": nv})
+    _, dwf, dparams, dcfg, dacc = diamond_setup(DIAMOND_NCONF)
+
+    def run_diamond(m):
+        data, cfg = vmc(dwf, dparams, dcfg, nblocks=1, nsteps_per_block=10, accumulators=dacc,
+                        generator=gen(111), mesh=m)
+        return data, (cfg.positions, cfg.wrap)
+
+    both("(d) diamond VMC", run_diamond, {"pbc_sweep": 10, "gto_eval": 20, "value_mo": 40})
+    dist.destroy_process_group()
+    t36 = time.perf_counter() - t_phase
+    print(f"phase 36: {t36:.1f} s; {card}", flush=True)
+    out["phase36_seconds"] = t36
+    return out
+
+
+def ewald2d_phase(t_start, card):
+    """Phase 37: the slab Ewald sum (observables/ewald2d.py) on the card in
+    float64 and float32: the NaCl monolayer's Madelung constant, and the
+    per-walker energies of EWALD2D_NCONF random walkers of EWALD2D_NELEC
+    electrons within 0.5 bohr of its plane against psi_host summed on the
+    host (float64)."""
+    from pyqmc_tpu_torch.observables.ewald2d import Ewald2D
+
+    class Monolayer:
+        atom_coords = np.array([[0, 0, 0], [1, 1, 0], [1, 0, 0], [0, 1, 0]], dtype=float)
+        atom_charges = np.array([1.0, 1.0, -1.0, -1.0])
+        lattice = np.diag([2.0, 2.0, 30.0])
+
+    print(f"phase 37 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    ew = Ewald2D(Monolayer)
+    madelung = ew.ii_const / 2.0
+    check(abs(madelung + NACL_MADELUNG) <= 1e-8 * NACL_MADELUNG,
+          f"phase 37: the NaCl monolayer's ii_const / 2 is {madelung}, not -{NACL_MADELUNG}")
+    rng = np.random.default_rng(37)
+    n, ne = EWALD2D_NCONF, EWALD2D_NELEC
+    pos = np.concatenate([rng.uniform(0.0, 2.0, size=(n, ne, 2)),
+                          rng.uniform(-0.5, 0.5, size=(n, ne, 1))], axis=-1)
+    iu, ju = np.triu_indices(ne, 1)
+    ee = ew.psi_host(pos[:, iu] - pos[:, ju]).reshape(n, -1).sum(1) + 0.5 * ne * ew.xi
+    dei = pos[:, :, None, :] - Monolayer.atom_coords[None, None]
+    ei = -(ew.psi_host(dei).reshape(n, ne, -1) * Monolayer.atom_charges).sum((1, 2))
+    host = {"ee": ee, "ei": ei, "ii": np.full(n, ew.ii_const)}
+    res = {}
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-5)):
+        x = torch.as_tensor(pos, dtype=dtype, device="cuda")
+        got = dict(zip(("ee", "ei", "ii"), ew.energy(x)))
+        ms = cuda_ms(lambda: ew.energy(x), 5)
+        if dtype == torch.float64:
+            err = {k: float(np.max(np.abs(got[k].double().cpu().numpy() - v)))
+                   for k, v in host.items()}
+        else:  # relative to the largest magnitude
+            err = {k: float(np.max(np.abs(got[k].double().cpu().numpy() - v)) / np.max(np.abs(v)))
+                   for k, v in host.items()}
+        res[str(dtype)] = {"err": err, "ms": ms}
+        check(all(e <= tol for e in err.values()), f"phase 37: Ewald2D.energy in {dtype} is "
+              f"{err} from psi_host on the host (gate {tol})")
+    t37 = time.perf_counter() - t_phase
+    print(f"phase 37: the NaCl monolayer's ii_const / 2 = {madelung:.10f}; energy of {n} walkers "
+          f"of {ne} electrons against the host: float64 {json.dumps(res['torch.float64'])} "
+          f"(absolute), float32 {json.dumps(res['torch.float32'])} (relative to the largest); "
+          f"{t37:.1f} s; {card}", flush=True)
+    return {"phase37_seconds": t37}
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0: the card (and the package: nothing is printed without both)
     check(torch.cuda.is_available(), "no CUDA device; the port's kernels run only on a GPU")
     from pyqmc_tpu_torch.models.orbitals import plain_orbitals
-    from pyqmc_tpu_torch.ops import _build, ecp_energy, gto_kernels, move_sweep, move_sweep_pbc
-    from pyqmc_tpu_torch.ops import tmove_sweep
+    from pyqmc_tpu_torch.ops import _build
 
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"phase 0: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    counters = {"vmc_sweep": move_sweep.LAUNCHES, "ecp_energy": ecp_energy.LAUNCHES,
-                "dmc_sweep": move_sweep.DMC_LAUNCHES, "tmove_sweep": tmove_sweep.LAUNCHES,
-                "value_mo": gto_kernels.VALUE_MO_LAUNCHES,
-                "gto_eval": gto_kernels.EVAL_GTO2_LAUNCHES, "pbc_sweep": move_sweep_pbc.LAUNCHES,
-                "pbc_dmc_sweep": move_sweep_pbc.DMC_LAUNCHES}
+    counters = kernel_counters()
     periodic = ("value_mo", "gto_eval", "pbc_sweep", "pbc_dmc_sweep")
     h2o_kernels = ("vmc_sweep", "ecp_energy", "dmc_sweep", "tmove_sweep")
 
@@ -4304,6 +4770,12 @@ def main():
     t34 = time.perf_counter() - t34
     print(f"phases 34-35: {rs['phase34_seconds']:.1f} + {cx['phase35_seconds']:.1f} = "
           f"{t34:.1f} s (their budget 60 s)", flush=True)
+    t36 = time.perf_counter()
+    ms = mesh_phases(t_start, card, counters)
+    ew = ewald2d_phase(t_start, card)
+    t36 = time.perf_counter() - t36
+    print(f"phases 36-37: {ms['phase36_seconds']:.1f} + {ew['phase37_seconds']:.1f} = "
+          f"{t36:.1f} s (their budget 60 s)", flush=True)
     total = time.perf_counter() - t_start
     # phase 17 (the H2O optimization; 75.2 s on the host whose total set the budget) is
     # the host's yardstick
@@ -4435,8 +4907,9 @@ def main():
         # the front door (phases 32-33): each recipe run's launches
         entry.update({f"launches_{k}": v[entry["name"]] for k, v in fd.items()
                       if k != "phase31_seconds"})
-        # the restarts and traces (phase 34), the complex optimization (phase 35)
-        entry.update({f"launches_{k}": v[entry["name"]] for k, v in {**rs, **cx}.items()
+        # the restarts and traces (phase 34), the complex optimization (phase 35), the
+        # walker mesh (phase 36: rank 0's of the two ranks)
+        entry.update({f"launches_{k}": v[entry["name"]] for k, v in {**rs, **cx, **ms}.items()
                       if not k.endswith("_seconds")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -67,9 +67,19 @@ diamond_twist_setup), each twist's Slater times the default Jastrow.
 
     sup, args = diamond_twist_average_setup(nconf=500)
     records, avg = twist_average_vmc(**args, nblocks=4, nsteps_per_block=10)
+
+`dryrun_multichip` (counterpart of `__graft_entry__.dryrun_multichip`):
+spawns n ranks in a process group on a FileStore and runs one H2O VMC
+block of 2 steps on 2n walkers under the walker mesh (parallel/mesh.py),
+one rank per card over NCCL, or on the CPU over gloo.
+
+    dryrun_multichip(2, device="cpu")
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import torch
 
@@ -269,3 +279,47 @@ def diamond_twist_average_setup(nconf, device=None, dtype=None, seed=0, path=DIA
                  "accumulators_factory": lambda: {"energy": EnergyAccumulator(sup)},
                  "wf_factory": lambda slater: MultiplyWF(slater, _diamond_jastrow(sup)),
                  "orbital_kws": {"img_tol": DIAMOND_IMG_TOL}, "device": device, "dtype": dtype}
+
+
+def _dryrun_rank(rank, n, store_path, device, backend):
+    """One rank of dryrun_multichip."""
+    import torch.distributed as dist
+
+    from .method.vmc import vmc
+    from .parallel.mesh import walker_mesh
+
+    dist.init_process_group(backend, store=dist.FileStore(store_path, n), rank=rank,
+                            world_size=n)
+    try:
+        mesh = walker_mesh(n, device=None if device.type == "cuda" else device)
+        mol, wf, params, configs, acc = h2o_setup(2 * n, device=mesh.device)
+        data, configs = vmc(wf, params, configs, nblocks=1, nsteps_per_block=2,
+                            accumulators=acc, mesh=mesh,
+                            generator=torch.Generator(device=mesh.device).manual_seed(2))
+        etot = data[0]["energytotal"]
+        if not np.isfinite(etot) or configs.positions.shape[0] != 2 * n:
+            raise RuntimeError(f"rank {rank}: E={etot}, {configs.positions.shape[0]} walkers")
+        if rank == 0:
+            print(f"dryrun_multichip({n}): {backend} on {mesh.device}, E={etot:.6f} OK",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n, device=None, backend=None):
+    """Spawn `n` ranks and run one H2O VMC block (2 steps, 2n walkers, the
+    energy accumulator) under the walker mesh; raises where a rank fails.
+    On the GPU unless device="cpu": one rank per card over NCCL (ValueError
+    where there are fewer cards than ranks); backend="gloo" lets ranks
+    share the cards. On the CPU, gloo."""
+    import torch.multiprocessing as mp
+
+    device = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl" and torch.cuda.device_count() < n:
+        raise ValueError(f"NCCL needs a card per rank: {n} ranks, "
+                         f"{torch.cuda.device_count()} cards (backend='gloo' shares them)")
+    with tempfile.TemporaryDirectory(prefix="dryrun_multichip_") as tmp:
+        mp.spawn(_dryrun_rank, args=(n, os.path.join(tmp, "store"), device, backend), nprocs=n,
+                 join=True)

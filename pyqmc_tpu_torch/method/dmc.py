@@ -46,7 +46,18 @@ have been queued. With `hdf_file` every block is copied at once and
 written to the file (its averages as a row, the walkers, the weights and
 esigma), and a second call on the file resumes the run from them; the
 same restart contents can be carried in a dict (`checkpoint=`), so a run
-resumes on a machine without h5py. Not ported: `mesh=`.
+resumes on a machine without h5py.
+
+With a walker mesh (parallel/mesh.py) each rank propagates its slice of
+the walkers on the streams of its own generator (vmc.shard_generators);
+the weighted block means reduce their numerators and denominators over
+the mesh, so the population control reads global scalars, and the comb is
+global: the weights, positions and wrap counts are gathered in rank order,
+one comb with a `u_branch` drawn from the caller's generator (alike on
+every rank, as the JAX package uses one key on every shard) resamples the
+whole population, each rank keeps its slice and every weight becomes the
+global mean. A comb local to each rank would leave each shard's weights
+uniform but not the population's.
 """
 
 from __future__ import annotations
@@ -66,10 +77,11 @@ from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, limdrift_umrigar, sweep_plain
 from ..ops.tmove_sweep import build_fused_tmove_sweep, tmove_sweep_plain
+from ..parallel.mesh import check_divides, gather_walkers, shard_walkers, sum_over
 from ..utils.profiling import trace
 from .hdftools import append_hdf, open_hdf
 from .vmc import (accumulator_draws, averages_to_host, checkpoint_configs, downselects,
-                  fold_generator)
+                  fold_generator, shard_generators)
 from .vmc import vmc as vmc_run
 
 __all__ = ["limdrift_umrigar", "compute_S", "branch", "draw_dmc_streams", "make_dmc_block",
@@ -88,18 +100,29 @@ def compute_S(e_trial, e_est, esigma, eloc, grad2, tstep, nelec):
     return e_trial - e_est + eclip / denom
 
 
-def branch(positions, wrap, weights, u_branch):
+def branch(positions, wrap, weights, u_branch, mesh=None):
     """Stochastic comb (systematic resampling) on the walkers' device:
     nconf teeth spaced sum(w) / nconf apart, the first at u_branch times
     the spacing. Returns (positions, wrap, weights), every weight reset to
-    the mean."""
+    the mean. With a mesh the comb is global (the module docstring):
+    u_branch must be alike on every rank."""
     nconf = weights.shape[0]
+    if mesh is None:
+        idx = _comb(weights, u_branch)
+        return positions[idx], wrap[idx], torch.ones_like(weights) * torch.mean(weights)
+    wall, pall, rall = gather_walkers(mesh, weights, positions, wrap)
+    idx = _comb(wall, u_branch)[mesh.rank * nconf:(mesh.rank + 1) * nconf]
+    return pall[idx], rall[idx], torch.ones_like(weights) * torch.mean(wall)
+
+
+def _comb(weights, u_branch):
+    """The indices the comb keeps."""
+    n = weights.shape[0]
     cum = torch.cumsum(weights, dim=0)
-    spacing = cum[-1] / nconf
-    pts = u_branch * spacing + torch.arange(nconf, device=weights.device,
+    spacing = cum[-1] / n
+    pts = u_branch * spacing + torch.arange(n, device=weights.device,
                                             dtype=weights.dtype) * spacing
-    idx = torch.clamp(torch.searchsorted(cum, pts), 0, nconf - 1)
-    return positions[idx], wrap[idx], torch.ones_like(weights) * torch.mean(weights)
+    return torch.clamp(torch.searchsorted(cum, pts), 0, n - 1)
 
 
 def draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, device, dtype, tmoves=True,
@@ -154,13 +177,13 @@ def _ecp_of(acc):
     return acc if isinstance(acc, ECPAccumulator) else getattr(acc, "ecp_acc", None)
 
 
-def _weighted_mean(x, w):
+def _weighted_sum(x, w):
     wb = w.reshape(w.shape + (1,) * (x.ndim - 1))
-    return torch.sum(wb * x, dim=0) / torch.sum(w, dim=0)
+    return torch.sum(wb * x, dim=0)
 
 
 def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=True,
-                   accumulators=None, fused=True):
+                   accumulators=None, fused=True, mesh=None):
     """(block, branch) of a DMC run.
 
     block(params, positions, wrap, weights, generator, e_trial, e_est,
@@ -179,6 +202,11 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
     plain sweeps and evaluates the orbitals without K3 and K6
     (models/orbitals.py:plain_orbitals). The ECP energy's kernel K2 is the
     accumulator's own choice (ECPAccumulator(fused=)).
+
+    mesh: a walker mesh; each rank passes its walkers and weights and the
+    caller's generator, the block draws from the rank's generator, its
+    weighted means are global (each step's numerators and denominators
+    summed over the mesh) and `branch` is the global comb.
     """
     accumulators = accumulators or {}
     nelec = wf.nelec
@@ -204,6 +232,8 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
     def run(params, positions, wrap, weights, generator, e_trial, e_est, esigma, streams):
         nconf = positions.shape[0]
         if streams is None:
+            if mesh is not None:
+                generator = shard_generators(generator, mesh.size)[mesh.rank]
             streams = draw_dmc_streams(generator, nsteps, nelec, nconf, tstep, positions.device,
                                        positions.dtype, tmoves=do_tmoves, downselect=downselect,
                                        accumulators=accumulators)
@@ -212,7 +242,10 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
         state = wf.recompute(params, positions)
         edat0 = energy_acc(wf, params, state, positions, streams["erot0"], streams.get("esel0"))
         S_old = compute_S(e_trial, e_est, esigma, edat0["total"], edat0["grad2"], tstep, nelec)
-        records = []
+        # per step: the plain means, and the weighted sums with their
+        # denominator; the weighted means are taken at the end, after the
+        # sums are reduced over the mesh
+        means, sums, dens = [], [], []
         for step in range(nsteps):
             if do_tmoves:
                 positions, wrap, state = tmove(params, positions, wrap, state,
@@ -228,22 +261,28 @@ def make_dmc_block(wf, energy_acc, geometry, tstep, nsteps, tdamp=None, tmoves=T
             step_tdamp = r2a / torch.clamp(r2p, min=1e-30) if tdamp is None else tdamp
             weights = weights * torch.exp(tstep * step_tdamp * 0.5 * (S_new + S_old))
             S_old = S_new
-            out = {"acceptance": acc / nelec}
-            for k, v in edat.items():
-                out[f"energy{k}"] = _weighted_mean(v, weights)
+            wsum = {f"energy{k}": _weighted_sum(v, weights) for k, v in edat.items()}
             for name, a in accumulators.items():
                 # weight-averaged mixed estimator, on the accumulator's own streams
                 own = {k: v[step] for k, v in draws.get(name, {}).items()}
                 rot, a_sel = own.pop("rot", None), own.pop("u_sel", None)
                 kw = {"draws": own} if hasattr(a, "draw") else {}
                 for k, v in a(wf, params, state, positions, rot, a_sel, **kw).items():
-                    out[f"{name}{k}"] = _weighted_mean(v, weights)
-            out["weight"] = torch.mean(weights)
-            records.append(out)
-        avg = {k: torch.mean(torch.stack([r[k] for r in records]), dim=0) for k in records[0]}
+                    wsum[f"{name}{k}"] = _weighted_sum(v, weights)
+            means.append({"acceptance": acc / nelec, "weight": torch.mean(weights)})
+            sums.append(wsum)
+            dens.append(torch.sum(weights, dim=0))
+        avg = {k: torch.mean(torch.stack([m[k] for m in means]), dim=0) for k in means[0]}
+        num = {k: torch.stack([r[k] for r in sums]) for k in sums[0]}
+        den = torch.stack(dens)
+        if mesh is not None:
+            avg, num, den = sum_over(mesh, (avg, num, den))
+            avg = {k: v / mesh.size for k, v in avg.items()}
+        for k, v in num.items():
+            avg[k] = torch.mean(v / den.reshape(den.shape + (1,) * (v.ndim - 1)), dim=0)
         return positions, wrap, weights, avg
 
-    return block, branch
+    return block, (branch if mesh is None else functools.partial(branch, mesh=mesh))
 
 
 def make_popctrl_update(feedback, ewin):
@@ -315,7 +354,7 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
            generator: Optional[torch.Generator] = None, verbose: bool = False,
            feedback: float = 1.0, warmup_vmc_blocks: int = 5, branchtime: int = 1,
            ewin: int = 25, pipeline_depth: int = 4, hdf_file: Optional[str] = None,
-           profile_dir: Optional[str] = None, checkpoint: Optional[dict] = None):
+           profile_dir: Optional[str] = None, checkpoint: Optional[dict] = None, mesh=None):
     """Run DMC where `configs` live; returns (list of per-block dicts of
     floats, numpy arrays for array-valued averages, final Configs, final
     weights).
@@ -344,6 +383,14 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
     host).
     profile_dir: write a torch.profiler trace of the first block there
     (utils/profiling.trace).
+    mesh: a walker mesh (parallel/mesh.py). Every rank passes the whole
+    population and a generator in the same state; each propagates its
+    slice (ValueError where the walkers do not divide evenly), the warm-up
+    runs under the same mesh, the rotations of the first local energies
+    are drawn for the whole population on every rank (each takes its
+    slice), the comb is global (the module docstring). The restart
+    contents, the returned Configs and weights hold the whole population;
+    rank 0 alone writes `hdf_file`.
     """
     if energy_acc is None:
         raise ValueError("energy_acc (EnergyAccumulator) is required")
@@ -352,11 +399,26 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
         generator = torch.Generator(device=device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
     nconf, nelec = configs.positions.shape[:2]
+    if mesh is not None:
+        check_divides(nconf, mesh, "nconf")
+        device = mesh.device
     contents = read_checkpoint(hdf_file) if hdf_file is not None else checkpoint or None
+
+    def local(*arrays):
+        """This rank's slice of whole-population arrays."""
+        return arrays if mesh is None else shard_walkers(mesh, *arrays)
+
+    def whole(*arrays):
+        """The whole population's arrays from this rank's slices."""
+        if mesh is None:
+            return arrays
+        out = gather_walkers(mesh, *arrays)
+        return out if len(arrays) > 1 else (out,)
 
     if contents is not None:
         where = f"DMC restart from {hdf_file}" if hdf_file is not None else "DMC restart"
         configs, weights, e_trial, e_est, esigma, block0 = restart_state(contents, configs, where)
+        positions, wrap, weights = local(configs.positions, configs.wrap, weights)
         generator = fold_generator(generator, block0)
         if verbose:
             print(f"dmc: resuming at block {block0}", flush=True)
@@ -364,24 +426,28 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
         # VMC warm-up, then e_trial from the walkers' local energies
         _, configs = vmc_run(wf, params, configs, nblocks=warmup_vmc_blocks,
                              nsteps_per_block=10, tstep=0.5,
-                             accumulators={"energy": energy_acc}, generator=generator)
+                             accumulators={"energy": energy_acc}, generator=generator, mesh=mesh)
+        positions, wrap = local(configs.positions, configs.wrap)
         quat = torch.randn((nelec, nconf, 4), generator=generator, device=generator.device,
                            dtype=dtype)
+        rot = rotations_from_quaternions(quat).to(device)
         u_sel = None
         if downselects({"energy": energy_acc}):
             u_sel = torch.rand((nelec, nconf), generator=generator, device=generator.device,
                                dtype=dtype).to(device)
-        eloc = energy_acc(wf, params, wf.recompute(params, configs.positions), configs.positions,
-                          rotations_from_quaternions(quat).to(device), u_sel)["total"]
+        if mesh is not None:  # the rotations of this rank's walkers
+            rot = shard_walkers(mesh, rot.transpose(0, 1)).transpose(0, 1)
+            u_sel = None if u_sel is None else shard_walkers(mesh, u_sel.T).T
+        eloc, = whole(energy_acc(wf, params, wf.recompute(params, positions), positions, rot,
+                                 u_sel)["total"])
         e_est = torch.mean(eloc)
         esigma = torch.std(eloc, unbiased=False)
         e_trial = e_est
-        weights = torch.ones(nconf, dtype=dtype, device=device)
+        weights = torch.ones(positions.shape[0], dtype=dtype, device=device)
         block0 = 0
-    positions, wrap = configs.positions, configs.wrap
 
     block_fn, branch_fn = make_dmc_block(wf, energy_acc, configs.geometry, tstep,
-                                         nsteps_per_block, accumulators=accumulators)
+                                         nsteps_per_block, accumulators=accumulators, mesh=mesh)
     popctrl = make_popctrl_update(feedback, ewin)
     ring = torch.zeros(ewin, dtype=dtype, device=device)
     ring[0] = e_est
@@ -389,6 +455,7 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
 
     block_data = []
     last_flush = [None]
+    talks = mesh is None or mesh.rank == 0
 
     def finish(avg_dev, b, t0):
         avg = averages_to_host(avg_dev, dtype)
@@ -397,16 +464,19 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
         last_flush[0] = now
         avg["block"] = b
         block_data.append(avg)
-        if verbose:
+        if verbose and talks:
             print(f"dmc block {b}: E={avg['energytotal']:.6f} w={avg['weight']:.4f} "
                   f"e_trial={avg['e_trial']:.6f}", flush=True)
 
-    def write(avg):
+    def write(avg, saved):
+        all_pos, all_wrap, all_w = saved
+        if not talks:
+            return
         with open_hdf(hdf_file, "a") as f:
             append_hdf(f, avg)
-            Configs.create(positions, configs.geometry, wrap=wrap).to_hdf(
+            Configs.create(all_pos, configs.geometry, wrap=all_wrap).to_hdf(
                 f.require_group("configs"))
-            w = weights.detach().cpu().numpy()
+            w = all_w.detach().cpu().numpy()
             if "weights" in f:
                 f["weights"][...] = w
             else:
@@ -428,16 +498,20 @@ def rundmc(wf, params, configs: Configs, nblocks: int = 100, nsteps_per_block: i
             u_branch = torch.rand((), generator=generator, device=generator.device,
                                   dtype=dtype).to(device)
             positions, wrap, weights = branch_fn(positions, wrap, weights, u_branch)
+        saved = None
+        if checkpoint is not None or hdf_file is not None:
+            saved = whole(positions, wrap, weights) if mesh is not None else (
+                positions.clone(), wrap.clone(), weights.clone())
         if checkpoint is not None:
-            checkpoint.update(configs=Configs.create(positions.clone(), configs.geometry,
-                                                     wrap=wrap.clone()),
-                              weights=weights.clone(), e_trial=e_trial, e_est=e_est,
-                              esigma=esigma, block=b)
+            checkpoint.update(configs=Configs.create(saved[0], configs.geometry, wrap=saved[1]),
+                              weights=saved[2], e_trial=e_trial, e_est=e_est, esigma=esigma,
+                              block=b)
         pending.append((avg, b, t0))
         if len(pending) > depth:
             finish(*pending.popleft())
             if hdf_file is not None:
-                write(block_data[-1])
+                write(block_data[-1], saved)
     while pending:
         finish(*pending.popleft())
+    positions, wrap, weights = whole(positions, wrap, weights)
     return block_data, Configs.create(positions, configs.geometry, wrap=wrap), weights

@@ -9,8 +9,14 @@ SR metric of one state are walker means on the device; the (nparam,
 nparam) solve runs on the host in float64 numpy. `hdf_file=` appends each
 iteration's row (the iteration, the overlap matrix, each optimized
 state's parameter vector x{k} and energy{k}) and keeps the walkers; a run
-on a file that holds iterations resumes after the last. Not ported:
-`mesh=` (ROADMAP queue 1 item 8).
+on a file that holds iterations resumes after the last.
+
+With a walker mesh (parallel/mesh.py) the overlap sampling runs under it,
+each rank evaluates the estimators on its slice of the walkers (the
+energy's ECP draws made for all walkers alike on every rank, each taking
+its slice), the estimators are means over the mesh, and rank 0 solves
+each state's step and broadcasts it, so every rank holds the same
+parameters, bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from ..observables.ecp import rotations_from_quaternions
+from ..parallel.mesh import mean_over, replicate, shard_walkers
 from .hdftools import append_hdf, open_hdf
 from .sample_many import amplitudes, make_overlap_block, sample_overlap
 from .vmc import averages_to_host, checkpoint_configs, downselects, fold_generator
@@ -31,10 +38,8 @@ def make_state_gradient_fn(wfs, k, transform, energy_acc, mesh=None):
     """fn(params_list, positions, rot=None, u_sel=None) -> walker means (0-d
     tensors, (nparam,) and (nparam, nparam) arrays) of the penalty-SR
     ingredients of state k; rot (nelec, nconf, 3, 3) and u_sel (nelec,
-    nconf) are the energy's ECP draws."""
-    if mesh is not None:
-        raise NotImplementedError("the ensemble optimization with a mesh is not ported "
-                                  "(ROADMAP queue 1 item 8)")
+    nconf) are the energy's ECP draws. mesh: each rank passes its walkers
+    and draws, and the means are over the mesh."""
 
     def fn(params_list, positions, rot=None, u_sel=None):
         states = tuple(wf.recompute(p, positions) for wf, p in zip(wfs, params_list))
@@ -51,7 +56,7 @@ def make_state_gradient_fn(wfs, k, transform, energy_acc, mesh=None):
             cross = (a[k].conj() * a[j] / rho).real
             out[f"n_{j}"] = torch.mean(cross)
             out[f"dp_n_{j}"] = cross @ dp / nconf
-        return out
+        return out if mesh is None else mean_over(mesh, out)
 
     return fn
 
@@ -90,10 +95,11 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
     hdf_file: append each iteration's row and keep the walkers there; where
     the file holds iterations, resume after the last: each optimized
     state's last x{k}, the walkers, and a generator folded from
-    `generator`'s seed and the first iteration (vmc.fold_generator)."""
-    if mesh is not None:
-        raise NotImplementedError("the ensemble optimization with a mesh is not ported "
-                                  "(ROADMAP queue 1 item 8)")
+    `generator`'s seed and the first iteration (vmc.fold_generator).
+
+    mesh: a walker mesh (the module docstring); every rank passes the whole
+    population, the same parameters and a generator in the same state;
+    rank 0 alone writes `hdf_file`."""
     device, dtype = configs.positions.device, configs.positions.dtype
     if generator is None:
         generator = torch.Generator(device=device)
@@ -116,17 +122,34 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
                     print(f"ensemble: resuming at iteration {start_it} from {hdf_file}",
                           flush=True)
     block_fn = make_overlap_block(wfs, configs.geometry, tstep=tstep, nsteps=nsteps,
-                                  energy_acc=energy_acc)
-    grad_fns = [make_state_gradient_fn(wfs, k, t, energy_acc) if t is not None else None
-                for k, t in enumerate(transforms)]
+                                  energy_acc=energy_acc, mesh=mesh)
+    grad_fns = [make_state_gradient_fn(wfs, k, t, energy_acc, mesh=mesh) if t is not None
+                else None for k, t in enumerate(transforms)]
     ecp = getattr(energy_acc, "ecp_acc", None)
     nconf, nelec = configs.positions.shape[:2]
+    talks = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        device = mesh.device
+
+    def solve(k, est):
+        """(state k's step, E_k); under a mesh rank 0 solves and broadcasts."""
+        if mesh is None:
+            steps, e_k = delta_p_state(k, est, [tau], penalty)
+            return steps[0], e_k
+        out = np.zeros(transforms[k].nparams + 1)
+        if mesh.rank == 0:
+            steps, e_k = delta_p_state(k, est, [tau], penalty)
+            out[:-1], out[-1] = steps[0], e_k
+        out = replicate(mesh, torch.as_tensor(out)).cpu().numpy()
+        return out[:-1], float(out[-1])
+
     records = []
     for it in range(start_it, max_iterations):
         data, configs = sample_overlap(wfs, params_list, configs, generator, nblocks=nblocks,
-                                       block_fn=block_fn)
+                                       block_fn=block_fn, mesh=mesh)
         overlap = np.mean([d["overlap"] for d in data], axis=0)
         rec = {"iteration": it, "overlap": overlap}
+        positions = configs.positions if mesh is None else shard_walkers(mesh, configs.positions)
         for k, (t, gfn) in enumerate(zip(transforms, grad_fns)):
             if t is None:
                 continue
@@ -138,17 +161,20 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
                 if downselects({"energy": energy_acc}):
                     u_sel = torch.rand((nelec, nconf), generator=generator,
                                        device=generator.device, dtype=dtype).to(device)
-            est = averages_to_host(gfn(tuple(params_list), configs.positions, rot, u_sel),
+                if mesh is not None:  # this rank's walkers' draws
+                    rot = shard_walkers(mesh, rot.transpose(0, 1)).transpose(0, 1)
+                    u_sel = None if u_sel is None else shard_walkers(mesh, u_sel.T).T
+            est = averages_to_host(gfn(tuple(params_list), positions, rot, u_sel),
                                    torch.float64)
             # the normalized overlaps with lower states need N_jj too
             for j in range(k):
                 est[f"njj_{j}"] = float(np.real(overlap[j, j]))
-            steps, e_k = delta_p_state(k, est, [tau], penalty)
-            flat = t.serialize(params_list[k]).to(torch.float64).cpu() + torch.as_tensor(steps[0])
+            step, e_k = solve(k, est)
+            flat = t.serialize(params_list[k]).to(torch.float64).cpu() + torch.as_tensor(step)
             params_list[k] = t.deserialize(params_list[k], flat)
             rec[f"energy{k}"] = float(e_k)
         records.append(rec)
-        if hdf_file is not None:
+        if hdf_file is not None and talks:
             row = {"iteration": it, "overlap": overlap}
             for k, t in enumerate(transforms):
                 if t is not None:
@@ -157,7 +183,7 @@ def optimize_ensemble(wfs, params_list, transforms, configs, energy_acc, generat
             with open_hdf(hdf_file, "a") as f:
                 append_hdf(f, row)
                 configs.to_hdf(f.require_group("configs"))
-        if verbose:
+        if verbose and talks:
             es = {kk: v for kk, v in rec.items() if kk.startswith("energy")}
             o01 = (abs(overlap[0, 1] / np.sqrt(abs(overlap[0, 0] * overlap[1, 1])))
                    if overlap.shape[0] > 1 else float("nan"))

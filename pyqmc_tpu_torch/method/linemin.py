@@ -24,8 +24,16 @@ LinearTransform's real and imaginary directions, and stay complex.
 parameter vector x to an HDF5 file and keeps the walkers there; a run on a
 file that holds iterations resumes after the last of them (its x and
 walkers). `checkpoint=` carries the same restart contents in a dict, for a
-machine without h5py. The walker mesh (ROADMAP queue 1 item 8) is not
-ported.
+machine without h5py.
+
+With a walker mesh (parallel/mesh.py) the SR VMC runs under it (its
+averages, dp, dpH and dpidpj among them, are means over the mesh before
+the solve), each rank evaluates the correlated energies of its slice of
+the first `correlated_nconf` walkers on its slice of one rotation draw
+made for all of them alike on every rank, and the log-amplitudes and
+energies are gathered before the host forms the estimates. Rank 0 solves
+the SR system and broadcasts the steps, so every rank takes the same
+parameters, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 from ..observables.ecp import rotations_from_quaternions
 from ..observables.sr import StochasticReconfiguration
 from ..configs import Configs
+from ..parallel.mesh import gather_walkers, replicate, shard_walkers
 from .hdftools import append_hdf, open_hdf
 from .vmc import checkpoint_configs, downselects, fold_generator, make_vmc_block, vmc
 
@@ -72,7 +81,7 @@ def draw_ecp_streams(generator, nelec, nconf, device, dtype, downselect=False):
     return rotations_from_quaternions(quat).to(device), u_sel
 
 
-def correlated_energies(sampler, params0, candidates, positions, rot, u_sel=None):
+def correlated_energies(sampler, params0, candidates, positions, rot, u_sel=None, mesh=None):
     """Correlated-sampling energies of candidate parameter sets on walkers
     drawn from |psi(params0)|^2, all evaluated with the same rotations
     (and selection uniforms). Returns (energies, ess) as float64 numpy:
@@ -82,14 +91,19 @@ def correlated_energies(sampler, params0, candidates, positions, rot, u_sel=None
     The log-amplitudes and energies reach the host in one copy; the
     weights exp(2 (la - la0)) are formed there in float64, after
     subtracting their maximum (which cancels in both the energy and the
-    ess), so a far candidate cannot overflow them."""
+    ess), so a far candidate cannot overflow them. With a mesh, each rank
+    passes its walkers and draws, and the rows are gathered in rank order
+    first, so every rank forms the same estimates from the same numbers."""
     la0, _ = sampler(params0, positions, rot, u_sel)
     rows = [la0]
     for cand in candidates:
         rows.extend(sampler(cand, positions, rot, u_sel))
-    host = torch.stack(rows).to(torch.float64).cpu().numpy()
+    rows = torch.stack(rows)
+    if mesh is not None:
+        rows = gather_walkers(mesh, rows.T.contiguous()).T
+    host = rows.to(torch.float64).cpu().numpy()
     la0, la, eloc = host[0], host[1::2], host[2::2]
-    n = positions.shape[0]
+    n = host.shape[1]
     d = 2.0 * (la - la0[None, :])
     w = np.exp(d - np.max(d, axis=1, keepdims=True))
     w = w / np.mean(w, axis=1, keepdims=True)
@@ -163,6 +177,7 @@ def line_minimization(
     verbose: bool = False,
     callback=None,
     checkpoint: Optional[dict] = None,
+    mesh=None,
 ):
     """Optimize params; returns (params, configs, iteration records).
 
@@ -189,18 +204,27 @@ def line_minimization(
     the file's restart contents: empty, the run starts at iteration 0;
     holding contents (as line_minimization leaves them, or
     read_checkpoint's), it resumes from them. line_minimization leaves the
-    contents after its last iteration in it."""
+    contents after its last iteration in it.
+
+    mesh: a walker mesh (parallel/mesh.py; the module docstring). Every rank
+    passes the whole population, the same parameters and a generator in
+    the same state; `correlated_nconf` must divide evenly over the ranks.
+    The returned configs hold the whole population; the callback's
+    positions and draws are the rank's; rank 0 alone writes `hdf_file`."""
     if generator is None:
         generator = torch.Generator(device=configs.positions.device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
     nconf, nelec = configs.positions.shape[:2]
     if correlated_nconf is not None and not (0 < correlated_nconf <= nconf):
         raise ValueError(f"correlated_nconf={correlated_nconf} must be in [1, nconf={nconf}]")
+    if mesh is not None and correlated_nconf is not None and correlated_nconf % mesh.size:
+        raise ValueError(f"correlated_nconf={correlated_nconf} does not divide over the "
+                         f"{mesh.size}-device mesh; pick a multiple of {mesh.size}")
     ncorr = nconf if correlated_nconf is None else correlated_nconf
     sr = StochasticReconfiguration(energy_acc, transform, eps=sr_eps)
     sampler = make_correlated_sampler(wf, energy_acc)
     block_fn = make_vmc_block(wf, {"pgrad": sr}, configs.geometry, tstep=vmc_tstep,
-                              nsteps=vmc_steps_per_block)
+                              nsteps=vmc_steps_per_block, mesh=mesh)
     downselect = downselects({"energy": energy_acc})
 
     start_it = 0
@@ -219,6 +243,19 @@ def line_minimization(
         if verbose:
             print(f"linemin: resuming at iteration {start_it}", flush=True)
 
+    talks = mesh is None or mesh.rank == 0
+
+    def solve(taus, block_avg):
+        """sr.delta_p; under a mesh rank 0 solves and broadcasts."""
+        if mesh is None:
+            return sr.delta_p(taus, block_avg)
+        out = np.zeros((len(taus), transform.nparams + 1))
+        if mesh.rank == 0:
+            steps, gnorm = sr.delta_p(taus, block_avg)
+            out[:, :-1], out[:, -1] = np.stack(steps), gnorm
+        out = replicate(mesh, torch.as_tensor(out)).cpu().numpy()
+        return list(out[:, :-1]), float(out[0, -1])
+
     taus = list(taus)
     taus0 = list(taus)
     ok_streak = 0
@@ -228,21 +265,27 @@ def line_minimization(
         t0 = time.perf_counter()
         data, configs = vmc(wf, params, configs, nblocks=vmc_blocks,
                             nsteps_per_block=vmc_steps_per_block, tstep=vmc_tstep,
-                            accumulators={"pgrad": sr}, generator=gen_it, block_fn=block_fn)
+                            accumulators={"pgrad": sr}, generator=gen_it, block_fn=block_fn,
+                            mesh=mesh)
         t1 = time.perf_counter()
         keys = SR_KEYS + (SR_KEYS_IMAG if "pgraddpI" in data[0] else ())
         block_avg = {k: np.stack([d[f"pgrad{k}"] for d in data]) for k in keys}
         if not np.all(np.isfinite(block_avg["total"])):
             raise ValueError("NaN/inf energy during optimization; the wavefunction may have "
                              "collapsed")
-        steps, gnorm = sr.delta_p(taus, block_avg)
+        steps, gnorm = solve(taus, block_avg)
         p0 = transform.serialize(params).to(torch.float64).cpu().numpy()
         candidates = [transform.deserialize(params, p0 + s) for s in steps]
         t2 = time.perf_counter()
         rot, u_sel = draw_ecp_streams(gen_it, nelec, ncorr, configs.positions.device,
                                       configs.positions.dtype, downselect)
         positions = configs.positions[:ncorr]
-        energies, ess = correlated_energies(sampler, params, candidates, positions, rot, u_sel)
+        if mesh is not None:  # this rank's walkers and draws
+            positions = shard_walkers(mesh, positions)
+            rot = shard_walkers(mesh, rot.transpose(0, 1)).transpose(0, 1)
+            u_sel = None if u_sel is None else shard_walkers(mesh, u_sel.T).T
+        energies, ess = correlated_energies(sampler, params, candidates, positions, rot, u_sel,
+                                            mesh=mesh)
         t3 = time.perf_counter()
         params0 = params
         best, taus = select_candidate(energies, ess, taus, iteration=it)
@@ -268,12 +311,12 @@ def line_minimization(
                            "candidates": candidates, "positions": positions, "rot": rot,
                            "u_sel": u_sel, "ess": ess,
                            "seconds": {"vmc": t1 - t0, "solve": t2 - t1, "correlated": t3 - t2}})
-        if verbose:
+        if verbose and talks:
             print(f"linemin iter {it}: E={rec['energy']:.6f}({rec['energy_err']:.6f}) "
                   f"|g|={gnorm:.4f} tau={chosen_tau}", flush=True)
         if hdf_file is not None or checkpoint is not None:
             x = transform.serialize(params).detach().cpu().numpy()
-        if hdf_file is not None:
+        if hdf_file is not None and talks:
             with open_hdf(hdf_file, "a") as f:
                 append_hdf(f, {"energy": rec["energy"], "energy_err": rec["energy_err"],
                                "gnorm": gnorm, "tau": chosen_tau, "x": x})

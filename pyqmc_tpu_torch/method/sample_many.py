@@ -26,6 +26,10 @@ numbers of a block are drawn at its start from a torch.Generator:
 
 A `streams` dict with those keys replaces the draws, so tests can feed the
 port and the JAX package the same numbers.
+
+With a walker mesh (parallel/mesh.py) each rank runs the chain of its
+slice of the walkers on its own generator (vmc.shard_generators) and the
+block averages are means over the mesh, as in method/vmc.py.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from ..configs import Configs
 from ..models.multiply import default_move_begin, default_move_finish
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import limdrift
-from .vmc import accumulator_draws, averages_to_host, downselects, step_draws
+from ..parallel.mesh import check_divides, gather_walkers, mean_over, shard_walkers
+from .vmc import accumulator_draws, averages_to_host, downselects, shard_generators, step_draws
 
 
 def amplitudes(wfs, params_list, states):
@@ -92,11 +97,9 @@ def make_overlap_block(wfs, geometry, tstep=0.5, nsteps=10, energy_acc=None, acc
     over the block's steps of "acceptance", "overlap" (nwf, nwf), with
     energy_acc "energy{i}_num" and "energy{i}_den", and for every further
     accumulator "{name}{i}_{key}_num" and "state{i}_den" (the module
-    docstring). `mesh` (walkers sharded over devices) is not ported
-    (ROADMAP queue 1 item 8)."""
-    if mesh is not None:
-        raise NotImplementedError("sample_many with a mesh is not ported (ROADMAP queue 1 "
-                                  "item 8)")
+    docstring). mesh: each rank passes its walkers and the caller's
+    generator; the block draws from the rank's generator and its averages
+    are the means over the mesh."""
     accumulators = accumulators or {}
     nwf = len(wfs)
     nelec = wfs[0].nelec
@@ -134,6 +137,8 @@ def make_overlap_block(wfs, geometry, tstep=0.5, nsteps=10, energy_acc=None, acc
         nconf = positions.shape[0]
         states = tuple(wf.recompute(p, positions) for wf, p in zip(wfs, params_list))
         if streams is None:
+            if mesh is not None:
+                generator = shard_generators(generator, mesh.size)[mesh.rank]
             streams = draw_overlap_streams(generator, nsteps, nwf, nelec, nconf, tstep,
                                            positions.device, positions.dtype, energy_acc,
                                            accumulators)
@@ -163,6 +168,8 @@ def make_overlap_block(wfs, geometry, tstep=0.5, nsteps=10, energy_acc=None, acc
                     out[f"state{i}_den"] = torch.mean(w[i])
             records.append(out)
         avg = {k: torch.mean(torch.stack([r[k] for r in records]), dim=0) for k in records[0]}
+        if mesh is not None:
+            avg = mean_over(mesh, avg)
         return positions, wrap, avg
 
     return block
@@ -175,14 +182,21 @@ def sample_overlap(wfs, params_list, configs: Configs, generator=None, nblocks=1
     array-valued accumulator outputs), plus "block" and "block time" (the
     host time of the block's call). A prebuilt `block_fn`
     (make_overlap_block) is reused across calls, as optimize_ensemble
-    does."""
+    does. mesh: every rank passes the whole population and a generator in
+    the same state, each runs its slice (ValueError where the walkers do
+    not divide evenly), and the returned Configs hold the whole
+    population."""
     if generator is None:
         generator = torch.Generator(device=configs.positions.device)
         generator.manual_seed(int(time.time() * 1e6) % (2**31))
     if block_fn is None:
         block_fn = make_overlap_block(wfs, configs.geometry, tstep=tstep, nsteps=nsteps,
                                       energy_acc=energy_acc, accumulators=accumulators, mesh=mesh)
-    positions, wrap = configs.positions.clone(), configs.wrap.clone()
+    if mesh is None:
+        positions, wrap = configs.positions.clone(), configs.wrap.clone()
+    else:
+        check_divides(configs.positions.shape[0], mesh, "nconf")
+        positions, wrap = shard_walkers(mesh, configs.positions, configs.wrap)
     data = []
     for b in range(nblocks):
         t0 = time.perf_counter()
@@ -190,4 +204,6 @@ def sample_overlap(wfs, params_list, configs: Configs, generator=None, nblocks=1
         out = averages_to_host(avg, positions.dtype)
         out["block"], out["block time"] = b, time.perf_counter() - t0
         data.append(out)
+    if mesh is not None:
+        positions, wrap = gather_walkers(mesh, positions, wrap)
     return data, Configs.create(positions, configs.geometry, wrap=wrap)

@@ -28,6 +28,14 @@ port and the JAX package the same numbers.
 block, the JAX package's datasets) and keeps the walkers there (group
 "configs"); a second call on the same file continues it. h5py is imported
 only then: every path without a file runs where h5py is absent.
+
+With a walker mesh (parallel/mesh.py) each rank sweeps its slice of the
+walkers. A block's streams come from the rank's generator,
+`shard_generators(generator, R)[rank]`, made anew at every block from the
+caller's generator (which every rank holds alike), as the JAX block folds
+the shard index into its key; the block averages are means over the mesh.
+A mesh of one rank draws from the caller's generator itself, so it runs
+what no mesh runs, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ from ..configs import Configs
 from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
 from ..ops.move_sweep import build_fused_sweep, sweep_plain
-from ..utils.profiling import trace
+from ..parallel.mesh import check_divides, gather_walkers, mean_over, shard_walkers
+from ..utils.profiling import measure_phase_split, trace
 from .hdftools import append_hdf, open_hdf
 
 
@@ -57,6 +66,22 @@ def fold_generator(generator, index):
     state = np.random.SeedSequence([int(generator.initial_seed()), int(index)]).generate_state(
         1, np.uint64)
     return torch.Generator(device=generator.device).manual_seed(int(state[0]) & (2**63 - 1))
+
+
+def shard_generators(generator, size):
+    """The generators of the ranks of a mesh of `size` ranks, one per rank:
+    a generator seeded from `generator`'s present state, folded with each
+    rank (fold_generator). `generator` is then advanced by one draw, so
+    the next call gives other streams, as the JAX package splits its key
+    before each block and folds the shard index into it. Reading the state
+    needs no copy from the device. One rank: [generator] itself."""
+    if size == 1:
+        return [generator]
+    words = np.frombuffer(generator.get_state().numpy().tobytes(), dtype=np.uint32)
+    seed = np.random.SeedSequence(words.tolist()).generate_state(1, np.uint64)[0]
+    torch.rand((1,), generator=generator, device=generator.device)
+    base = torch.Generator(device=generator.device).manual_seed(int(seed) & (2**63 - 1))
+    return [fold_generator(base, r) for r in range(size)]
 
 
 def checkpoint_configs(saved, configs, where):
@@ -140,7 +165,7 @@ def downselects(accumulators):
 
 
 def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutoff=1.0,
-                   fused=True, accumulate_every=1):
+                   fused=True, accumulate_every=1, mesh=None):
     """Returns block(params, positions, wrap, generator, streams=None)
     -> (positions, wrap, averages), averages being tensors on the walkers'
     device: "acceptance" (per electron move), the mean over all steps, and
@@ -158,6 +183,11 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
     without K3 and K6 (models/orbitals.py:plain_orbitals); the ECP
     accumulator's kernel K2 is its own choice (ECPAccumulator(fused=)).
     The wrap counts of a periodic geometry are carried through the block.
+
+    mesh: a walker mesh (parallel/mesh.py); each rank passes its own walkers
+    and the caller's generator, the block draws from the rank's generator
+    (shard_generators) and its averages are the means over the mesh.
+    Given `streams` are this rank's.
     """
     accumulators = accumulators or {}
     sweep = build_fused_sweep(wf, geometry, tstep, drift_cutoff) if fused else None
@@ -176,6 +206,8 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
         nconf, nelec = positions.shape[:2]
         state = wf.recompute(params, positions)
         if streams is None:
+            if mesh is not None:
+                generator = shard_generators(generator, mesh.size)[mesh.rank]
             streams = draw_streams(generator, nsteps, nelec, nconf, tstep, positions.device,
                                    positions.dtype, downselect)
             draws = accumulator_draws(accumulators, generator, nsteps, nconf, positions.device,
@@ -201,6 +233,8 @@ def make_vmc_block(wf, accumulators, geometry, tstep=0.5, nsteps=10, drift_cutof
         avg = {"acceptance": torch.mean(torch.stack(acceptance), dim=0)}
         avg.update({k: torch.mean(torch.stack([r[k] for r in records]), dim=0)
                     for k in records[0]})
+        if mesh is not None:
+            avg = mean_over(mesh, avg)
         return positions, wrap, avg
 
     return block
@@ -210,7 +244,8 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
         tstep: float = 0.5, accumulators: Optional[dict] = None,
         generator: Optional[torch.Generator] = None, block_fn=None, verbose: bool = False,
         accumulate_every: int = 1, hdf_file: Optional[str] = None,
-        continue_from: Optional[str] = None, profile_dir: Optional[str] = None):
+        continue_from: Optional[str] = None, profile_dir: Optional[str] = None,
+        mesh=None, profile_phases: bool = False):
     """Run VMC; returns (list of per-block dicts, final Configs): a 0-d
     average becomes a float, an array-valued one (the SR accumulator's dp,
     dpidpj, a density matrix, ...) a numpy array, as the JAX package's vmc
@@ -224,6 +259,16 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
     from 0, writing to `hdf_file`, which must not exist yet.
     profile_dir: write a torch.profiler trace of the first block there
     (utils/profiling.trace).
+    mesh: a walker mesh (parallel/mesh.py). Every rank passes the whole
+    population (`configs`) and a generator in the same state; each sweeps
+    its slice (ValueError where the walkers do not divide evenly over the
+    ranks), the averages are the mesh's, the returned Configs hold the
+    whole population, gathered once at the end, and rank 0 alone writes
+    `hdf_file` (the walkers gathered at every block).
+    profile_phases: before the blocks, time a block with the accumulators
+    and one without (utils/profiling.measure_phase_split, on the walkers'
+    start, drawing from `generator`); every block record then carries
+    their "move time" and "accumulate time" (the difference).
 
     Without a file, blocks are pipelined: block b's averages are fetched
     (one copy to the host of all of them, flattened and concatenated) after
@@ -251,11 +296,27 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
                 configs = checkpoint_configs(f["configs"], configs, f"VMC checkpoint {hdf_file}")
                 block0 = int(np.asarray(f["block"])[-1]) + 1
                 generator = fold_generator(generator, block0)
+    if mesh is not None:
+        check_divides(configs.positions.shape[0], mesh, "nconf")
     if block_fn is None:
         block_fn = make_vmc_block(wf, accumulators, configs.geometry, tstep=tstep,
-                                  nsteps=nsteps_per_block, accumulate_every=accumulate_every)
-    positions = configs.positions.clone()
-    wrap = configs.wrap.clone()
+                                  nsteps=nsteps_per_block, accumulate_every=accumulate_every,
+                                  mesh=mesh)
+    if mesh is None:
+        positions, wrap = configs.positions.clone(), configs.wrap.clone()
+    else:
+        positions, wrap = shard_walkers(mesh, configs.positions, configs.wrap)
+    writes = hdf_file is not None and (mesh is None or mesh.rank == 0)
+    phase_split = None
+    if profile_phases and accumulators:
+        move_fn = make_vmc_block(wf, {}, configs.geometry, tstep=tstep, nsteps=nsteps_per_block,
+                                 accumulate_every=accumulate_every, mesh=mesh)
+        split = measure_phase_split(block_fn, move_fn,
+                                    (params, positions.clone(), wrap.clone(), generator))
+        phase_split = {k: split[k] for k in ("move time", "accumulate time")}
+        if verbose:
+            print(f"phase split: move {phase_split['move time']:.4f}s, accumulate "
+                  f"{phase_split['accumulate time']:.4f}s per block", flush=True)
     block_data = []
     pending = None
 
@@ -264,11 +325,19 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
         avg = averages_to_host(avg_dev, configs.positions.dtype)
         avg["block"] = b
         avg["block time"] = seconds
+        if phase_split is not None:
+            avg.update(phase_split)
         block_data.append(avg)
-        if verbose:
+        if verbose and (mesh is None or mesh.rank == 0):
             tot = avg.get("energytotal")
             print(f"block {b}: acc={avg['acceptance']:.3f}"
                   + (f" E={tot:.6f}" if tot is not None else ""), flush=True)
+
+    def whole():
+        """The whole population's walkers."""
+        if mesh is None:
+            return positions, wrap
+        return gather_walkers(mesh, positions, wrap)
 
     for b in range(block0, block0 + nblocks):
         t0 = time.perf_counter()
@@ -281,10 +350,13 @@ def vmc(wf, params, configs: Configs, nblocks: int = 10, nsteps_per_block: int =
         if hdf_file is not None:
             flush(pending)
             pending = None
-            with open_hdf(hdf_file, "a") as f:
-                append_hdf(f, block_data[-1])
-                Configs.create(positions, configs.geometry, wrap=wrap).to_hdf(
-                    f.require_group("configs"))
+            all_pos, all_wrap = whole()
+            if writes:
+                with open_hdf(hdf_file, "a") as f:
+                    append_hdf(f, block_data[-1])
+                    Configs.create(all_pos, configs.geometry, wrap=all_wrap).to_hdf(
+                        f.require_group("configs"))
     if pending is not None:
         flush(pending)
-    return block_data, Configs.create(positions, configs.geometry, wrap=wrap)
+    all_pos, all_wrap = whole()
+    return block_data, Configs.create(all_pos, configs.geometry, wrap=all_wrap)

@@ -19,6 +19,10 @@ O_k = R_k + i I_k and the local energy E_R + i E_I,
 the conjugated metric Re<O_k* O_l> - Re(<O_k>* <O_l>). The walker means
 run on the device in the walkers' dtype (avg's total_im, dpI, dpHI,
 dpidpjI beside the real ones), the solve on the host in float64.
+
+Under a walker mesh the VMC block reduces these means over the mesh
+(method/vmc.py) before `delta_p`; line_minimization has rank 0 solve and
+broadcast the steps, so every rank takes the same parameters.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ numbers come from torch.Generators seeded from `seed`: the walkers of
 initial_guess from `seed` (drawn on the CPU, so a seed gives the same
 walkers on every device), OPTIMIZE's equilibration from seed + 1 and its
 line minimization from seed + 2, VMC from seed + 3 and DMC from seed + 4,
-on the walkers' device. The walker mesh (mesh=) is ROADMAP queue 1 item 8
-and raises NotImplementedError.
+on the walkers' device. VMC and DMC take a walker mesh (`mesh=`,
+parallel/mesh.py): every rank builds the same walkers from the seed and
+sweeps its slice; `device` should then be the mesh's.
 """
 
 from __future__ import annotations
@@ -44,12 +45,6 @@ from .system.scf import run_scf
 from .utils.dtypes import real_dtype, resolve_device
 from .method.hdftools import open_hdf
 from .wftools import generate_wf, read_wf_params, save_wf_params
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("the walker mesh (mesh=) is not ported (ROADMAP queue 1 "
-                                  "item 8)")
 
 
 def _generator(seed, device):
@@ -198,8 +193,7 @@ def VMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nb
     call), else the defaults of generate_wf; load_parameters: the same read
     from OPTIMIZE's output file. accumulators: accumulator objects or
     generate_accumulators keywords, merged with the energy. output: the HDF5
-    file of vmc(hdf_file=)."""
-    _no_mesh(mesh)
+    file of vmc(hdf_file=). mesh: vmc's walker mesh."""
     mol, mf, wf, params0, to_opt, configs, energy = _setup(
         mol, mf, nconfig, jastrow3, jastrow_kws, seed, naip, ci_checkfile, device)
     params = params0 if params is None else params
@@ -210,7 +204,7 @@ def VMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nb
     return vmc(wf, params, configs, nblocks=nblocks, nsteps_per_block=nsteps_per_block,
                tstep=tstep, accumulators=accs,
                generator=_generator(seed + 3, configs.positions.device), verbose=verbose,
-               hdf_file=output)
+               hdf_file=output, mesh=mesh)
 
 
 def DMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nblocks=100,
@@ -221,8 +215,7 @@ def DMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nb
     `dmc_kws` are rundmc's keywords); returns (block data, configs,
     weights). params, load_parameters and accumulators as in VMC. output:
     the HDF5 file of rundmc(hdf_file=), resumed where it holds a DMC
-    checkpoint."""
-    _no_mesh(mesh)
+    checkpoint. mesh: rundmc's walker mesh."""
     mol, mf, wf, params0, to_opt, configs, energy = _setup(
         mol, mf, nconfig, jastrow3, jastrow_kws, seed, naip, ci_checkfile, device)
     params = params0 if params is None else params
@@ -234,7 +227,7 @@ def DMC(mol, output: Optional[str] = None, mf=None, params=None, nconfig=500, nb
     return rundmc(wf, params, configs, nblocks=nblocks, nsteps_per_block=nsteps_per_block,
                   tstep=tstep, energy_acc=energy,
                   generator=_generator(seed + 4, configs.positions.device), verbose=verbose,
-                  hdf_file=output, **dmc_kws)
+                  hdf_file=output, mesh=mesh, **dmc_kws)
 
 
 def read_mc_output(filename, warmup=5, reblocks=16, weights="auto"):

@@ -1,5 +1,6 @@
 """Supercell construction and supercell twists (counterpart of
-pyqmc_tpu/system/supercell.py:17-79; numpy only).
+pyqmc_tpu/system/supercell.py; numpy, and torch for the Jastrow
+parameters).
 
 A supercell is defined by an integer matrix S: A_super = S @ A_prim. Its
 atoms are the primitive cell's, translated by every primitive lattice point
@@ -64,3 +65,17 @@ def create_supercell_twists(supercell, primitive_kpts, tol=1e-8):
     for i, f in enumerate(np.round(frac_mod, 8)):
         groups.setdefault(tuple(f), []).append(i)
     return {k: np.asarray(v) for k, v in groups.items()}
+
+
+def replicate_jastrow_params(jastrow_prim, jastrow_super, params_prim):
+    """Primitive-cell Jastrow coefficients mapped onto the supercell's
+    Jastrow: the atom-resolved acoeff and ccoeff tiled over the replicas
+    (the supercell's atoms are translation-major, as get_supercell orders
+    them); bcoeff is translation-invariant and copied."""
+    nrep = jastrow_super.natom // jastrow_prim.natom
+    out = dict(params_prim)
+    for k in ("acoeff", "ccoeff"):
+        if k in params_prim:
+            a = params_prim[k]
+            out[k] = a.tile((nrep,) + (1,) * (a.ndim - 1))
+    return out

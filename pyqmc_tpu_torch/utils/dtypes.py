@@ -33,6 +33,17 @@ def real_dtype(device) -> torch.dtype:
     return PRODUCTION_DTYPE if torch.device(device).type == "cuda" else PARITY_DTYPE
 
 
+def int_dtype(dtype_or_device) -> torch.dtype:
+    """The integer dtype beside a precision: int32 beside float32 (or
+    complex64, or a CUDA device, where float32 is the default), int64
+    beside float64 and elsewhere."""
+    if isinstance(dtype_or_device, torch.dtype):
+        single = dtype_or_device in (torch.float32, torch.complex64)
+    else:
+        single = real_dtype(dtype_or_device) == torch.float32
+    return torch.int32 if single else torch.int64
+
+
 def complex_dtype(dtype) -> torch.dtype:
     """The complex dtype of a real (or complex) dtype's precision:
     complex64 for float32, complex128 for float64."""

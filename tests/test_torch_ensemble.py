@@ -36,6 +36,7 @@ from pyqmc_tpu_torch.models.slater import DeterminantExpansion, Slater
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
 from pyqmc_tpu_torch.observables.s2 import S2Accumulator
 from pyqmc_tpu_torch.observables.transform import LinearTransform
+from pyqmc_tpu_torch.parallel.mesh import WalkerMesh
 
 from .torch_parity import F64, jrun, port_molecule, to_np
 
@@ -138,8 +139,10 @@ def test_state_gradient_and_step_match_jax():
 def test_excited_setup_and_ensemble_on_cpu():
     """h2o_excited_setup on the CPU: the states' parameters and the
     superposition's transform; sample_overlap's keys and a finite
-    optimize_ensemble iteration that moves det_coeff; mesh= raises, naming
-    what is not ported (hdf_file= is held in tests/test_torch_io.py)."""
+    optimize_ensemble iteration that moves det_coeff; a walker mesh whose
+    ranks do not divide the walkers raises before any work (the meshed
+    runs are held in tests/test_torch_mesh.py, hdf_file= in
+    tests/test_torch_io.py)."""
     mol, wfs, params_list, configs, acc, ens = h2o_excited_setup(4, device="cpu")
     assert ens["transforms"][0] is None and ens["transforms"][1].nparams == 2
     assert tuple(ens["params_list"][1]["wf0"]["det_coeff"].tolist()) == (0.5, 0.8)
@@ -153,5 +156,8 @@ def test_excited_setup_and_ensemble_on_cpu():
                                                 nsteps=1)
     assert np.isfinite(records[0]["energy1"])
     assert not np.allclose(to_np(plist[1]["wf0"]["det_coeff"]), [0.5, 0.8])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_overlap_block(wfs, configs.geometry, mesh=object())
+    mesh3 = WalkerMesh(group=None, rank=0, size=3, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="must divide evenly"):
+        ensemble.optimize_ensemble(**ens, configs=configs, energy_acc=acc["energy"],
+                                   generator=gen, max_iterations=1, nblocks=1, nsteps=1,
+                                   mesh=mesh3)

@@ -4,7 +4,7 @@ package's pyqmc_tpu/recipes.py: the set-up from a Molecule on H2/STO-3G
 generate_accumulators' flags, OPTIMIZE -> VMC(params=) -> DMC end to end on
 device="cpu" with the JAX recipes' record and block keys, the HDF5 paths
 (output=, load_parameters=, a chkfile path, ci_checkfile=, read_mc_output,
-read_opt), and the walker mesh, which raises.
+read_opt), and the walker mesh's guard.
 
 No JAX VMC or DMC block is compiled here: the JAX side's recipes are
 compared through their set-up and one local-energy evaluation.
@@ -20,6 +20,7 @@ from pyqmc_tpu import recipes as jrecipes
 from pyqmc_tpu.system.mole import Molecule as JMolecule
 
 from pyqmc_tpu_torch import recipes
+from pyqmc_tpu_torch.parallel.mesh import WalkerMesh
 from pyqmc_tpu_torch.system.mole import Molecule
 
 from .torch_parity import F64, jrun, to_np, walkers
@@ -129,14 +130,18 @@ def test_recipes_default_to_the_gpu():
         recipes.VMC(Molecule(H2, basis="sto-3g"), nconfig=4, nblocks=1)
 
 
+_MESH3 = WalkerMesh(group=None, rank=0, size=3, device=torch.device("cpu"), backend="gloo")
+
+
 @pytest.mark.parametrize("call", [
-    lambda mol: recipes.VMC(mol, mesh=object(), device="cpu"),
-    lambda mol: recipes.DMC(mol, mesh=object(), device="cpu"),
+    lambda mol: recipes.VMC(mol, nconfig=4, mesh=_MESH3, device="cpu"),
+    lambda mol: recipes.DMC(mol, nconfig=4, mesh=_MESH3, device="cpu"),
 ], ids=["vmc-mesh", "dmc-mesh"])
 def test_unported_paths_raise(call):
-    """The walker mesh raises NotImplementedError naming its ROADMAP queue
-    1 item, before any work."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    """VMC and DMC pass the walker mesh on (tests/test_torch_mesh.py runs
+    it): walkers that do not divide over its ranks raise ValueError, with
+    the JAX package's "must divide evenly", before the first block."""
+    with pytest.raises(ValueError, match="must divide evenly"):
         call(Molecule(H2, basis="sto-3g"))
 
 

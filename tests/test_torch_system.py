@@ -79,7 +79,8 @@ def test_port_imports_no_jax():
         "          'api', 'recipes', 'system.elements', 'system.basis', 'system.tpu1_library',\n"
         "          'system.integrals', 'system.ecp_integrals', 'system.scf', 'system.casci',\n"
         "          'system.ci_import', 'system.chkfile', 'system.pyscf_adapter',\n"
-        "          'method.hdftools', 'utils.profiling'):\n"
+        "          'method.hdftools', 'utils.profiling', 'parallel.mesh',\n"
+        "          'observables.ewald2d', 'system.basis_fit', 'system.ecp_generate'):\n"
         "    assert 'pyqmc_tpu_torch.' + m in sys.modules, m\n"
         "assert 'h5py' not in sys.modules\n"
         "print(len([k for k in sys.modules if k.startswith('pyqmc_tpu_torch')]))\n"
