@@ -27,7 +27,8 @@ checkpoint contents and their profiler traces, and the complex-orbital
 optimization; and the walker mesh (one NCCL rank, two gloo ranks sharing
 the card) through VMC, DMC with its global comb, the line minimization,
 the overlap sampling, the VMC recipe and the diamond's VMC; and the slab
-Ewald sum.
+Ewald sum; and the public surface: the walker-state API and a user's
+GenericJastrow through VMC and the line minimization.
 
   0. the card's name and power limit (nvidia-smi); no CUDA device -> fail
   1. build the CUDA kernels from csrc/ (one nvcc per source, side by side)
@@ -172,16 +173,16 @@ Ewald sum.
      the plain version's, the bound (`value_mo_bound`) and the device ns
      per point beside the diamond's (phase 8)
   14. the CASCI anchor: h2o_casci_setup(jastrow=False), the bare
-     multi-determinant Slater, + vmc(), 5 blocks x 50 steps; launch counts
-     exactly 50 K3 per block (one per energy: the plain ECP chain's flat
+     multi-determinant Slater, + vmc(), 5 blocks x 20 steps; launch counts
+     exactly 20 K3 per block (one per energy: the plain ECP chain's flat
      ratio call) and none of the others; the mean of the blocks after the
      first 2 within 5 x max(SEM, 1e-3) of E_CASCI (the reference's
      criterion, tests/integration/test_casci.py) and more than 3 SEM below
      E_HF, so that a port keeping only the leading determinant fails
   15. multi-Slater-Jastrow VMC: h2o_casci_setup (default device) + vmc(),
-     4 blocks x 50 steps, 50 K3 per block and nothing else; the mean of the
+     4 blocks x 20 steps, 20 K3 per block and nothing else; the mean of the
      blocks after the first 2 within max(5 x combined SEM, 0.005 Ha) of the
-     JAX package's CPU reference on the same schedule
+     JAX package's CPU reference (50-step blocks)
      (tools/h2o_casci_jax_reference.py) and the acceptance within 0.05 of
      its; then one 5-step block with K3 and one inside plain_orbitals() on
      the same streams, timed in turns: positions and acceptance identical
@@ -244,16 +245,16 @@ Ewald sum.
   20. the three-body Jastrow optimized at 2048 walkers, float32:
      generate_wf(mol, mf, jastrow3=True) (276 free coefficients) from phase
      17's optimized two-body coefficients with ccoeff at zero and phase 17's
-     walkers; line_minimization for 6 iterations of 5 x 10 SR steps (a third
+     walkers; line_minimization for 3 iterations of 4 x 10 SR steps (a third
      factor is outside the K1/K2 gates: plain sweep and ECP chain, K3 once
-     per energy, exactly 57 per iteration); each iteration's energy, |g|,
+     per energy, exactly 47 per iteration); each iteration's energy, |g|,
      SR step and launches; then 3 x 25 VMC steps (75 K3): every energy
      finite, the mean of the blocks after the first no higher than phase
      17's by 3 combined SEM and within J3_OPT_BOUND of the JAX CPU
-     reference on the same schedule (tools/h2o_j3_jax_reference.py opt)
+     reference (tools/h2o_j3_jax_reference.py opt, 6 iterations of 5 x 10)
   21. BASELINE config 3 VMC: h2o_casci_j3_setup (the CASCI expansion x the
      two- and three-body Jastrow on the committed coefficients) + vmc(), 4
-     x 50 steps, exactly 50 K3 per block and nothing else; the mean of the
+     x 20 steps, exactly 20 K3 per block and nothing else; the mean of the
      blocks after the first within 3 combined SEM of the JAX CPU reference
      at the same coefficients (tools/h2o_j3_jax_reference.py vmc); a
      512-walker 3-step float32 block with K3 and one inside
@@ -302,9 +303,9 @@ Ewald sum.
      warm-up VMC's by more than 0.02 Ha
   26. the two-twist average: twist_average_vmc over the union of the 8
      TRIM k-points and the same 8 shifted (diamond_twist_average_setup),
-     3 blocks x 10 steps per twist, the TRIM twist from phase 9's walkers
+     3 blocks x 6 steps per twist, the TRIM twist from phase 9's walkers
      and the general one from phase 24's: exactly two twists, real mode
-     at the TRIM one only; per twist launches exactly (K7 10 per block at
+     at the TRIM one only; per twist launches exactly (K7 6 per block at
      the TRIM twist, none at the general one; K6 and K3 as in phase 24);
      each twist's energy per cell (twist_average_vmc's rule: the blocks
      after the first) within max(5 x combined SEM, 0.02 Ha) of its JAX CPU
@@ -417,7 +418,7 @@ Ewald sum.
      (default_rng(7), JAX tests/integration/test_complex_linemin.py),
      MultiplyWF(Slater, JastrowSpin); both spins' mo_coeff, acoeff and
      bcoeff optimized (SR's complex channel) for 4 iterations of 5 x 10 SR
-     steps at 2048 walkers, then VMC 4 x 20 steps: the last iteration's
+     steps at 2048 walkers, then VMC 4 x 12 steps: the last iteration's
      energy below the first's by more than 3 x (err_first + err_last), the
      parameters complex64 and finite, exactly one K3 launch per energy
      (the plain complex sweep launches none), the VMC's blocks after the
@@ -439,7 +440,7 @@ Ewald sum.
      after the last comb at most 1% of walkers with another parent, DMC
      energies within 1e-4 Ha, every weight of the population equal, each
      rank's launches exact; the gloo collectives that take CUDA tensors
-     printed; (c) one line_minimization iteration (4 x 10 SR steps) on the
+     printed; (c) one line_minimization iteration (2 x 10 SR steps) on the
      two ranks in float32 and in float64: the parameters equal on both
      ranks, within 1e-5 relative of the one-process run in float64 (the
      float32 distance printed: the SR solve carries the float32 averages'
@@ -453,6 +454,30 @@ Ewald sum.
      walkers of 4 electrons within 0.5 bohr of its plane against psi_host
      summed on the host: 1e-9 in float64, 1e-5 relative to the largest in
      float32. Phases 36-37 take at most 60 s
+  38. the public surface: (a) the walker-state API on CUDA tensors, on
+     diamond_setup's 500 walkers after phase 9 and h2o_setup's 2048:
+     make_irreducible equal to Geometry.enforce, Geometry.dist_matrix and
+     dist_i against the host's float64 minimal image (1e-12 in float64,
+     1e-5 of the largest distance in float32), split(4) then join,
+     resample on the indices of one comb (method/dmc.py branch) and move / move_all under a random
+     mask equal to what they replace, bit for bit, their inputs untouched;
+     (b) a user's GenericJastrow written to the JAX package's contract
+     (features and bilinear only: atom-centred Gaussians, symmetric A) as
+     the third factor of generate_wf's Slater x JastrowSpin on H2O:
+     testwf.run_all at 64 walkers in float64 (pgradient against finite
+     differences), the generic pgradient of GPSJastrow and GeminalJastrow
+     against their closed forms (1e-10), then at 2048 walkers in float32
+     VMC 2 x 10, one line_minimization iteration of 2 x 10 SR steps over
+     JastrowSpin's coefficients and A's upper triangle, and VMC 2 x 10
+     after it: the iteration's energies (its SR VMC's, the lowest line
+     energy, the VMC's blocks) in phase 6's (-17.6, -16.9) Ha, the VMC
+     after it not above the iteration's start by more than 5 x the
+     combined SEM (each at least 0.005 Ha); the third factor leaves the
+     sweeps and the ECP to the plain chains, so exactly one K3 per energy
+     (10 per VMC block, 27 per iteration) and no K1, K2, K4 or K5; the
+     ECP energy's K3 use held per walker against plain_orbitals() (1e-3
+     of the walker's local and nonlocal terms), each walker's relative
+     error printed beside it. Phase 38 takes at most 40 s
 
 Any failure raises, so the exit code is not 0. The line before the last is
 a JSON object of the kernels; the last line is
@@ -510,9 +535,10 @@ H2O_VMC_E = -16.987946
 H2O_DMC_E = -17.221626
 BLOCK_CHECK_NCONF = 512  # walkers of phase 2's float64 blocks (a power of 2: exact means)
 # the multi-determinant path (phases 13-16): h2o_casci_setup, 2048 walkers
-CASCI_NBLOCKS = 5  # phase 14: 50-step VMC blocks of the bare CASCI expansion
+CASCI_NBLOCKS = 5  # phase 14: VMC blocks of the bare CASCI expansion
 CASCI_NWARM = 2  # blocks dropped before a mean (phases 14 and 15)
-CASCI_SJ_NBLOCKS = 4  # phase 15: 50-step multi-Slater-Jastrow VMC blocks
+CASCI_SJ_NBLOCKS = 4  # phase 15: multi-Slater-Jastrow VMC blocks
+CASCI_NSTEPS = 20  # steps of phases 14 and 15's blocks
 CASCI_DMC_WARMUP = 2  # phase 16: rundmc's VMC warm-up blocks (10 steps at tstep 0.5)
 CASCI_DMC_NBLOCKS = 2
 CASCI_DMC_NLAST = 2
@@ -545,15 +571,15 @@ H2O_DMC_README = (-17.2429, 0.0013)
 WF_CHECK_NCONF = 64  # phase 19: run_all on the card, float64
 CUSP32_RTOL = 1e-4  # phase 19: float32 against float64, relative to the largest |value|
 J3_NPARAMS = 276  # phase 20: 33 two-body + 243 three-body (ccoeff) coefficients
-J3_ITERATIONS = 6  # phase 20: line_minimization iterations of J3_SR_BLOCKS x 10 SR steps
-J3_SR_BLOCKS = 5
+J3_ITERATIONS = 3  # phase 20: line_minimization iterations of J3_SR_BLOCKS x 10 SR steps
+J3_SR_BLOCKS = 4
 J3_VMC_BLOCKS, J3_VMC_NSTEPS = 3, 25  # VMC blocks with the optimized J2 x J3, the first dropped
 J3_OPT_BOUND = 0.01  # Ha: phase 20's VMC against J3_OPT_REF (PERF.md, set before the first run)
 # tools/h2o_j3_jax_reference.py opt 2048 2 61 on the CPU, float64, phases 17 and
 # 20's schedules: 2 runs of 2048 walkers, the mean of their optimized VMC
 # energies and its standard error over the runs (see PERF.md)
 J3_OPT_REF = {"e": -17.19870129539305, "sem": 0.0007760304331529966}
-CONFIG3_NBLOCKS = 4  # phase 21: 50-step VMC blocks, the first dropped
+CONFIG3_NBLOCKS, CONFIG3_NSTEPS = 4, 20  # phase 21: VMC blocks, the first dropped
 CONFIG3_CHECK_NCONF, CONFIG3_CHECK_NSTEPS = 512, 3  # phase 21's K3 against plain block
 CONFIG3_TRACE_NSTEPS = 3
 CONFIG3_DMC_WARMUP, CONFIG3_DMC_NBLOCKS, CONFIG3_DMC_NLAST = 2, 2, 2  # phase 22, as phase 16
@@ -568,7 +594,8 @@ TWIST_NSKIP = 1
 TWIST_TRACE_NSTEPS = 1  # phase 24's traced block
 # phase 25, from phase 24's equilibrated VMC walkers, so without a VMC warm-up
 TWIST_DMC_WARMUP, TWIST_DMC_NBLOCKS, TWIST_DMC_NLAST = 0, 2, 2
-TWIST_AVG_NBLOCKS = 3  # phase 26: 10-step blocks per twist, averaged after max(1, 3 // 4)
+TWIST_AVG_NBLOCKS = 3  # phase 26: blocks per twist, averaged after max(1, 3 // 4)
+TWIST_AVG_NSTEPS = 6  # their steps
 # tools/diamond_twist_jax_reference.py on the CPU, float64 (see PERF.md): vmc 64 4 8 4 3
 # (4 runs of 64 walkers, 8 blocks kept after 4), phase 24's energy per cell
 TWIST_VMC_REF = {"e_cell": -10.181446452474983, "sem": 0.008945233221813065,
@@ -666,7 +693,7 @@ RESTART_RTOL = 1e-6  # the resumed line minimization against the uninterrupted o
 # the complex-orbital optimization (phase 35): H2O from phase 31's SCF, mo_coeff times i plus
 # uniform noise in [-0.1, 0.1) (default_rng(7)), both spins' mo_coeff, acoeff, bcoeff optimized
 COMPLEX_ITERATIONS, COMPLEX_SR_BLOCKS = 4, 5  # line_minimization, 10-step SR blocks
-COMPLEX_VMC_NBLOCKS, COMPLEX_VMC_NSTEPS, COMPLEX_VMC_NSKIP = 4, 20, 1
+COMPLEX_VMC_NBLOCKS, COMPLEX_VMC_NSTEPS, COMPLEX_VMC_NSKIP = 4, 12, 1
 COMPLEX_SEED = 17
 # tools/complex_opt_jax_reference.py 2048 4 4 5 17 2 on the CPU, float64, phase 35's
 # schedule: 4 runs of 2048 walkers (seeds 17, 27, 37, 47); the mean of their VMC energies
@@ -677,7 +704,7 @@ COMPLEX_REF = {"e_vmc": -17.168437806445134, "sem_vmc": 0.0030806459486583853,
                "e_last": -17.147101696302954}
 # the walker mesh (phase 36): H2O (h2o_setup), 2048 walkers in all, 10-step blocks
 MESH_VMC_NBLOCKS, MESH_DMC_WARMUP, MESH_DMC_NBLOCKS = 2, 1, 2
-MESH_SR_BLOCKS = 4  # (c) one line_minimization iteration of 4 x 10 SR steps
+MESH_SR_BLOCKS = 2  # (c) one line_minimization iteration of 2 x 10 SR steps
 MESH_OVERLAP_NSTEPS = 10  # (d) one sample_overlap block
 MESH_RANK_TIMEOUT = 600.0  # s the parent waits for the two ranks of (b)-(c)
 MESH_POS_ATOL = 1e-5  # (b) VMC positions of two ranks against one process (0 expected)
@@ -688,6 +715,9 @@ MESH_OPT_RTOL = 1e-5  # (c) float64 parameters against one process, relative to 
 # the slab Ewald sum (phase 37): the NaCl monolayer (square, 2 x 2 ions, nearest neighbours
 # 1 bohr apart), its Madelung constant per ion pair, and random walkers near its plane
 NACL_MADELUNG = 1.6155426267
+# the public surface (phase 38): a user's GenericJastrow beside Slater x JastrowSpin on H2O
+USER_NBLOCKS = 2  # 10-step blocks of each VMC and of the iteration's SR VMC
+USER_SEM_FLOOR = 0.005  # Ha: the least SEM taken for a 2-block mean (its noise at 2048 walkers)
 EWALD2D_NCONF, EWALD2D_NELEC = 2048, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, data sheet
@@ -1675,7 +1705,7 @@ def casci_phases(t_start, card, counters, per_point_64):
     gen = torch.Generator(device="cuda").manual_seed(37)
     reset_counts()
     t0 = time.perf_counter()
-    cblocks, _ = vmc(wf, params, configs, nblocks=CASCI_NBLOCKS, nsteps_per_block=NSTEPS,
+    cblocks, _ = vmc(wf, params, configs, nblocks=CASCI_NBLOCKS, nsteps_per_block=CASCI_NSTEPS,
                      tstep=TSTEP, accumulators=acc, generator=gen)
     torch.cuda.synchronize()
     t_cas = time.perf_counter() - t0
@@ -1686,7 +1716,7 @@ def casci_phases(t_start, card, counters, per_point_64):
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
               f"non-finite energies in CASCI block {b['block']}")
     # one K3 launch per energy: the plain ECP chain's one flat ratio call
-    check(claunches == {**{k: 0 for k in counters}, "value_mo": CASCI_NBLOCKS * NSTEPS},
+    check(claunches == {**{k: 0 for k in counters}, "value_mo": CASCI_NBLOCKS * CASCI_NSTEPS},
           f"kernel launches on the CASCI VMC path: {claunches}")
     e_cas = np.array([b["energytotal"] for b in cblocks[CASCI_NWARM:]])
     m_cas, sem_cas = float(np.mean(e_cas)), float(np.std(e_cas, ddof=1) / np.sqrt(len(e_cas)))
@@ -1708,7 +1738,7 @@ def casci_phases(t_start, card, counters, per_point_64):
     reset_counts()
     t0 = time.perf_counter()
     sblocks, sconfigs = vmc(wf, params, configs, nblocks=CASCI_SJ_NBLOCKS,
-                            nsteps_per_block=NSTEPS, tstep=TSTEP, accumulators=acc, generator=gen)
+                            nsteps_per_block=CASCI_NSTEPS, tstep=TSTEP, accumulators=acc, generator=gen)
     torch.cuda.synchronize()
     t_sj = time.perf_counter() - t0
     slaunches = read_counts()
@@ -1718,7 +1748,7 @@ def casci_phases(t_start, card, counters, per_point_64):
               f"host time {b['block time']:.3f} s", flush=True)
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
               f"non-finite energies in multi-Slater-Jastrow block {b['block']}")
-    check(slaunches == {**{k: 0 for k in counters}, "value_mo": CASCI_SJ_NBLOCKS * NSTEPS},
+    check(slaunches == {**{k: 0 for k in counters}, "value_mo": CASCI_SJ_NBLOCKS * CASCI_NSTEPS},
           f"kernel launches on the multi-Slater-Jastrow VMC path: {slaunches}")
     e_sj = np.array([b["energytotal"] for b in sblocks[CASCI_NWARM:]])
     m_sj, sem_sj = float(np.mean(e_sj)), float(np.std(e_sj, ddof=1) / np.sqrt(len(e_sj)))
@@ -2342,7 +2372,7 @@ def config3_phases(t_start, card, counters, opt):
     gen = torch.Generator(device="cuda").manual_seed(73)
     reset_counts()
     t0 = time.perf_counter()
-    cblocks, cconfigs = vmc(wf, params, configs, nblocks=CONFIG3_NBLOCKS, nsteps_per_block=NSTEPS,
+    cblocks, cconfigs = vmc(wf, params, configs, nblocks=CONFIG3_NBLOCKS, nsteps_per_block=CONFIG3_NSTEPS,
                             tstep=TSTEP, accumulators=acc, generator=gen)
     torch.cuda.synchronize()
     t_c3 = time.perf_counter() - t0
@@ -2353,14 +2383,14 @@ def config3_phases(t_start, card, counters, opt):
               f"host time {b['block time']:.3f} s", flush=True)
         check(all(np.isfinite(v) for k, v in b.items() if k.startswith("energy")),
               f"non-finite energies in config 3 block {b['block']}")
-    check(c3launches == {**none, "value_mo": CONFIG3_NBLOCKS * NSTEPS},
+    check(c3launches == {**none, "value_mo": CONFIG3_NBLOCKS * CONFIG3_NSTEPS},
           f"kernel launches of config 3 VMC: {c3launches}")
     e_c = np.array([b["energytotal"] for b in cblocks[1:]])
     m_c, sem_c = float(np.mean(e_c)), float(np.std(e_c, ddof=1) / np.sqrt(len(e_c)))
     a_c = float(np.mean([b["acceptance"] for b in cblocks[1:]]))
     cref = CONFIG3_REF
     cwindow = 3 * float(np.hypot(sem_c, cref["sem"]))
-    step_ms = float(np.mean([b["block time"] for b in cblocks[1:]])) / NSTEPS * 1e3
+    step_ms = float(np.mean([b["block time"] for b in cblocks[1:]])) / CONFIG3_NSTEPS * 1e3
     zc = (m_c - cref["e"]) / np.hypot(sem_c, cref["sem"])
     print(f"phase 21: launches {c3launches}, E(blocks 2-{CONFIG3_NBLOCKS})={m_c:.6f} +- "
           f"{sem_c:.6f} Ha, acc={a_c:.4f}; JAX CPU reference {cref['e']:.6f} +- {cref['sem']:.6f} "
@@ -2786,14 +2816,14 @@ def twist_phases(t_start, card, counters, gamma_configs):
     reset_counts()
     t0 = time.perf_counter()
     records, avg = twist_average_vmc(**args, generator=gen, nblocks=TWIST_AVG_NBLOCKS,
-                                     nsteps_per_block=DIAMOND_NSTEPS, tstep=TSTEP)
+                                     nsteps_per_block=TWIST_AVG_NSTEPS, tstep=TSTEP)
     torch.cuda.synchronize()
     t_avg = time.perf_counter() - t0
     marks.append(read_counts())
     check(len(records) == 2 and [r["real_mode"] for r in records] == [True, False],
           f"the union mesh gave twists {[(r['twist'], r['real_mode']) for r in records]}")
     alaunches = [{k: marks[i + 1][k] - marks[i][k] for k in counters} for i in range(2)]
-    nstep = TWIST_AVG_NBLOCKS * DIAMOND_NSTEPS
+    nstep = TWIST_AVG_NBLOCKS * TWIST_AVG_NSTEPS
     aexpect = [{**none, "pbc_sweep": nstep, **{k: nstep * v for k, v in per_step.items()}},
                {**none, **{k: nstep * v for k, v in per_step.items()}}]
     check(alaunches == aexpect,
@@ -4348,6 +4378,293 @@ def ewald2d_phase(t_start, card):
           f"{t37:.1f} s; {card}", flush=True)
     return {"phase37_seconds": t37}
 
+def host_minimal_image(d, lattice):
+    """Minimal-image displacements of d (..., 3) in float64 on the host:
+    rounded in fractional coordinates, then the nearest of the 27
+    neighbouring images; the identity for an open boundary."""
+    if lattice is None:
+        return d
+    frac = d @ np.linalg.inv(lattice)
+    base = (frac - np.round(frac)) @ lattice
+    span = np.array([-1.0, 0.0, 1.0])
+    shifts = np.array(np.meshgrid(span, span, span, indexing="ij")).reshape(3, -1).T @ lattice
+    cand = base[..., None, :] + shifts
+    best = np.argmin(np.sum(cand * cand, axis=-1), axis=-1)
+    return np.take_along_axis(cand, best[..., None, None], axis=-2)[..., 0, :]
+
+
+def walker_state_checks(name, configs):
+    """Phase 38 (a) on one system's walkers (CUDA, float32): make_irreducible,
+    Geometry.dist_matrix / dist_i against host_minimal_image (float64 1e-12,
+    float32 1e-5 relative to the largest distance), split / join, resample
+    on one comb's indices, move / move_all under a random mask. Returns the
+    errors."""
+    from pyqmc_tpu_torch.configs import Configs
+    from pyqmc_tpu_torch.method import dmc as tdmc
+
+    geo = configs.geometry
+    nconf, nelec = configs.nconf, configs.nelec
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    pos, wrap = configs.positions, configs.wrap
+    epos = pos[:, 0] + 3.0 * torch.randn((nconf, 3), generator=gen, device="cuda")
+    folded, delta = configs.make_irreducible(epos)
+    ref_f, ref_d = geo.enforce(epos)
+    check(torch.equal(folded, ref_f) and torch.equal(delta, ref_d),
+          f"phase 38 {name}: make_irreducible differs from Geometry.enforce")
+    # the host's float64 minimal image of the float32 walkers, in chunks of
+    # walkers (host memory): the reference of both dtypes
+    xh, eh, lat = pos.double().cpu().numpy(), epos.double().cpu().numpy(), geo.lattice
+    chunks = np.array_split(np.arange(nconf), max(1, nconf // 64))
+    want = {"dist_matrix": np.concatenate([host_minimal_image(
+                xh[c, None, :, :] - xh[c, :, None, :], lat) for c in chunks]),
+            "dist_i": np.concatenate([host_minimal_image(eh[c, None] - xh[c], lat)
+                                      for c in chunks])}
+    err = {}
+    for dtype in (torch.float64, torch.float32):
+        x, ep = pos.to(dtype), epos.to(dtype)
+        dm = geo.dist_matrix(x)
+        check(dm.shape == (nconf, nelec, nelec, 3) and dm.dtype == dtype,
+              f"phase 38 {name}: dist_matrix {tuple(dm.shape)} {dm.dtype}")
+        check(float(torch.abs(torch.diagonal(dm, dim1=1, dim2=2)).max()) == 0.0,
+              f"phase 38 {name}: dist_matrix is not zero on its diagonal")
+        for key, got in (("dist_matrix", dm), ("dist_i", geo.dist_i(x, ep))):
+            g, w = got.double().cpu().numpy(), want[key]
+            if dtype == torch.float64:
+                e = float(np.max(np.abs(g - w)))
+                tol = 1e-12
+            else:  # two images can tie within float32 rounding: distances, relative
+                e = float(np.max(np.abs(np.linalg.norm(g, axis=-1) - np.linalg.norm(w, axis=-1)))
+                          / np.max(np.linalg.norm(w, axis=-1)))
+                tol = 1e-5
+            err[f"{key}_{str(dtype)[6:]}"] = e
+            check(e <= tol, f"phase 38 {name}: {key} in {dtype} is {e:.3e} from the host's "
+                  f"float64 minimal image (gate {tol})")
+    parts = configs.split(4)
+    back = Configs.join(parts)
+    check([p.nconf for p in parts] == [len(c) for c in np.array_split(np.arange(nconf), 4)]
+          and all(p.positions.device == pos.device for p in parts)
+          and torch.equal(back.positions, pos) and torch.equal(back.wrap, wrap),
+          f"phase 38 {name}: split(4) then join does not give the walkers back")
+    weights = torch.rand(nconf, generator=gen, device="cuda") * 1.5 + 0.25
+    u = torch.rand((), generator=gen, device="cuda")
+    bpos, bwrap, _ = tdmc.branch(pos, wrap, weights, u)
+    res = configs.resample(tdmc._comb(weights, u))
+    check(torch.equal(res.positions, bpos) and torch.equal(res.wrap, bwrap),
+          f"phase 38 {name}: resample on the comb's indices differs from the comb's population")
+    mask = torch.rand(nconf, generator=gen, device="cuda") < 0.5
+    before = pos.clone(), wrap.clone()
+    moved = configs.move(3, folded, delta, mask)
+    want_p, want_w = pos.clone(), wrap.clone()
+    want_p[:, 3] = torch.where(mask[:, None], folded, pos[:, 3])
+    want_w[:, 3] = torch.where(mask[:, None], wrap[:, 3] + delta, wrap[:, 3])
+    check(torch.equal(moved.positions, want_p) and torch.equal(moved.wrap, want_w),
+          f"phase 38 {name}: move differs from the masked where")
+    new_p, new_w = geo.enforce(pos + torch.randn(pos.shape, generator=gen, device="cuda"))
+    all_ = configs.move_all(new_p, new_w, mask)
+    check(torch.equal(all_.positions, torch.where(mask[:, None, None], new_p, pos))
+          and torch.equal(all_.wrap, torch.where(mask[:, None, None], new_w, wrap)),
+          f"phase 38 {name}: move_all differs from the masked where")
+    check(torch.equal(pos, before[0]) and torch.equal(wrap, before[1]),
+          f"phase 38 {name}: a walker-state operation changed its input")
+    print(f"phase 38 (a) {name}, {nconf} walkers x {nelec} electrons ({geo.mode}): "
+          f"make_irreducible == Geometry.enforce; dist_matrix and dist_i against the host's "
+          f"float64 minimal image {json.dumps({k: float(f'{v:.3e}') for k, v in err.items()})}; "
+          f"split(4) sizes {[p.nconf for p in parts]} and join, resample on one comb "
+          f"({int(mask.sum())} of {nconf} walkers masked in), move and move_all: bit for bit",
+          flush=True)
+    return err
+
+
+def public_surface_phase(t_start, card, counters, gamma_configs):
+    """Phase 38: the walker-state API on CUDA tensors (the diamond's on
+    gamma_configs, phase 9's diamond_setup walkers), and a user's
+    GenericJastrow subclass written to the JAX package's contract (features
+    and bilinear only) through testwf, VMC and the line minimization on
+    H2O as the third factor of Slater x JastrowSpin, whose sweeps and ECP
+    energy then run plain but for the ECP's orbital values on K3. Returns
+    the launch counts and K3's errors against plain_orbitals()."""
+    from pyqmc_tpu_torch.configs import initial_guess
+    from pyqmc_tpu_torch.entry import h2o_setup
+    from pyqmc_tpu_torch.method.linemin import line_minimization
+    from pyqmc_tpu_torch.method.vmc import vmc
+    from pyqmc_tpu_torch.models import testwf
+    from pyqmc_tpu_torch.models.generic_jastrow import (GenericJastrow, GeminalJastrow,
+                                                         GPSJastrow)
+    from pyqmc_tpu_torch.models.multiply import MultiplyWF
+    from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
+    from pyqmc_tpu_torch.observables.ecp import rotations_from_quaternions
+    from pyqmc_tpu_torch.observables.transform import LinearTransform
+    from pyqmc_tpu_torch.system.io import load_npz
+    from pyqmc_tpu_torch.utils.constants import DeviceConstants
+    from pyqmc_tpu_torch.wftools import generate_wf
+
+    class AtomGaussJastrow(GenericJastrow):
+        """U = sum_{i<j} phi(r_i)^T A phi(r_j), phi = exp(-a |r - R_I|^2) for
+        each atom I and exponent a: features and bilinear, nothing else."""
+
+        def __init__(self, mol, exponents=(0.6, 1.5)):
+            super().__init__(sum(mol.nelec))
+            self.nfeat = len(mol.atom_coords) * len(exponents)
+            self._const = DeviceConstants(centers=np.asarray(mol.atom_coords),
+                                          exponents=np.asarray(exponents, dtype=np.float64))
+
+        def make_params(self, device=None, dtype=None):
+            return {"A": torch.zeros((self.nfeat, self.nfeat), dtype=dtype, device=device)}
+
+        def features(self, params, xyz):
+            c = self._const.get(xyz.device, xyz.dtype)
+            d = xyz[..., None, :] - c["centers"]
+            r2 = torch.sum(d * d, dim=-1)
+            return torch.exp(-r2[..., None] * c["exponents"]).reshape(*xyz.shape[:-1],
+                                                                      self.nfeat)
+
+        def bilinear(self, params, u, v):
+            A = 0.5 * (params["A"] + params["A"].T)
+            return torch.sum((u @ A) * v, dim=-1)
+
+    none = {k: 0 for k in counters}
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return {k: c.n for k, c in counters.items()}
+
+    print(f"phase 38 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the walker-state API on the card
+    _, _, _, hconfigs, _ = h2o_setup(NCONF)
+    walker_err = {"diamond": walker_state_checks("diamond-C", gamma_configs),
+                  "h2o": walker_state_checks("H2O", hconfigs)}
+
+    # (b) the user's Jastrow as the third factor of generate_wf's Slater x JastrowSpin
+    mol, mf = load_npz()
+    sj, params0, to_opt = generate_wf(mol, mf, dtype=torch.float32)
+    user = AtomGaussJastrow(mol)
+    wf = MultiplyWF(*sj.wfs, user)
+    params0 = {**params0, "wf2": user.make_params("cuda", torch.float32)}
+    to_opt = {**to_opt, "wf2": {"A": np.triu(np.ones((user.nfeat, user.nfeat), dtype=bool))}}
+    lt = LinearTransform(params0, to_opt)
+    rng = np.random.default_rng(38)
+    checked = cast_tree(randomize_jastrow(params0, 38), torch.float64)
+    checked["wf2"] = {"A": torch.as_tensor(rng.normal(scale=0.05, size=(user.nfeat, user.nfeat)),
+                                           dtype=torch.float64, device="cuda")}
+    t0 = time.perf_counter()
+    wconfigs = initial_guess(mol, WF_CHECK_NCONF, generator=torch.Generator().manual_seed(381),
+                             device="cuda", dtype=torch.float64)
+    testwf.run_all(wf, checked, wconfigs, torch.Generator().manual_seed(382))
+    t_run_all = time.perf_counter() - t0
+    # the generic pgradient of the shipped feature maps against their closed forms
+    pg_err = {}
+    for name, w in (("gps", GPSJastrow(mol)), ("geminal", GeminalJastrow(mol))):
+        p = {k: v + 0.05 * torch.as_tensor(rng.normal(size=tuple(v.shape)), dtype=v.dtype,
+                                          device="cuda")
+             for k, v in w.make_params("cuda", torch.float64).items()}
+        closed = w.pgradient(p, wconfigs.positions)
+        generic = GenericJastrow.pgradient(w, p, wconfigs.positions)
+        pg_err[name] = max(float(torch.max(torch.abs(generic[k] - closed[k])))
+                           / max(float(torch.max(torch.abs(closed[k]))), 1e-30) for k in closed)
+        check(pg_err[name] <= 1e-10, f"phase 38: the generic pgradient of {name} is "
+              f"{pg_err[name]:.3e} from its closed form (gate 1e-10, relative to the largest)")
+    print(f"phase 38 (b): testwf.run_all of Slater x JastrowSpin x the user's Jastrow "
+          f"({user.nfeat} features, A {user.nfeat} x {user.nfeat}) at {WF_CHECK_NCONF} walkers "
+          f"in float64 passed in {t_run_all:.1f} s; the generic pgradient against the closed "
+          f"forms (float64, relative to the largest): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in pg_err.items()})}", flush=True)
+
+    energy = EnergyAccumulator(mol)
+    gen = torch.Generator(device="cuda").manual_seed(383)
+    configs = initial_guess(mol, NCONF, generator=torch.Generator().manual_seed(384),
+                            device="cuda", dtype=torch.float32)
+    k3 = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks0, configs = vmc(wf, params0, configs, nblocks=USER_NBLOCKS, nsteps_per_block=10,
+                           tstep=TSTEP, accumulators={"energy": energy}, generator=gen)
+    torch.cuda.synchronize()
+    t_vmc0 = time.perf_counter() - t0
+    k3["vmc"] = read_counts()
+    check(k3["vmc"] == {**none, "value_mo": USER_NBLOCKS * 10},
+          f"phase 38 VMC launches {k3['vmc']}: one K3 per energy and nothing else expected")
+    reset_counts()
+    t0 = time.perf_counter()
+    params, configs, records = line_minimization(
+        wf, params0, configs, lt, energy, generator=gen, max_iterations=1,
+        vmc_blocks=USER_NBLOCKS, vmc_steps_per_block=10)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    k3["linemin"] = read_counts()
+    ncand = len(records[0]["line_energies"])
+    per_it = USER_NBLOCKS * 10 + 1 + ncand
+    check(k3["linemin"] == {**none, "value_mo": per_it},
+          f"phase 38 line minimization launches {k3['linemin']}: {per_it} K3 (one per energy: "
+          f"{USER_NBLOCKS * 10} SR steps, the reference and {ncand} candidates) and nothing else")
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks1, configs = vmc(wf, params, configs, nblocks=USER_NBLOCKS, nsteps_per_block=10,
+                           tstep=TSTEP, accumulators={"energy": energy}, generator=gen)
+    torch.cuda.synchronize()
+    t_vmc1 = time.perf_counter() - t0
+    check(read_counts() == k3["vmc"], f"phase 38 VMC after the iteration launched {read_counts()}")
+    rec = records[0]
+    e1 = [b["energytotal"] for b in blocks1]
+    e_end, sem_end = float(np.mean(e1)), float(np.std(e1, ddof=1) / np.sqrt(len(e1)))
+    # the iteration's energies: its SR VMC's, the step it took and the VMC after it
+    line = np.asarray(rec["line_energies"], dtype=float)
+    check(bool(np.all(np.isfinite(line))), f"phase 38 line energies {line.tolist()}")
+    energies = [rec["energy"], float(np.min(line)), *e1]
+    check(all(np.isfinite(energies)) and all(-17.6 < e < -16.9 for e in energies),
+          f"phase 38 energies {energies} outside phase 6's (-17.6, -16.9) Ha")
+    comb = float(np.hypot(max(rec["energy_err"], USER_SEM_FLOOR), max(sem_end, USER_SEM_FLOOR)))
+    check(e_end <= rec["energy"] + 5 * comb,
+          f"phase 38: VMC after the iteration {e_end:.6f} lies above its start "
+          f"{rec['energy']:.6f} by more than 5 x {comb:.6f}")
+    moved = float(torch.max(torch.abs(params["wf2"]["A"])))
+    print(f"phase 38 (b): VMC {USER_NBLOCKS} x 10 at {NCONF} walkers, float32, E "
+          f"{[round(float(b['energytotal']), 6) for b in blocks0]} in {t_vmc0:.2f} s; one "
+          f"line_minimization iteration ({USER_NBLOCKS} x 10 SR steps over {lt.nparams} parameters, "
+          f"{user.nfeat * (user.nfeat + 1) // 2} of them A's) E {rec['energy']:.6f} +- "
+          f"{rec['energy_err']:.6f} |g| {rec['gnorm']:.4f} tau {rec['tau']} line energies "
+          f"{[round(float(e), 5) for e in rec['line_energies']]} in {t_opt:.2f} s, max |A| "
+          f"{moved:.4f}; VMC after it {e_end:.6f} +- {sem_end:.6f} in {t_vmc1:.2f} s; K3 "
+          f"launches per {10}-step VMC block {k3['vmc']['value_mo'] // USER_NBLOCKS}, per "
+          f"iteration {k3['linemin']['value_mo']}; K1, K2, K4, K5 none; {card}", flush=True)
+    check(rec["tau"] == 0 or moved > 0, "phase 38: the iteration left the user's A at zero")
+
+    # K3's use (the ECP's flat chain) against plain_orbitals() per walker: the
+    # ECP energy as (local, nonlocal), so each walker's error is held to its
+    # own ECP terms; the local part has no orbitals and is equal on both
+    state = wf.recompute(params, configs.positions)
+    rot = rotations_from_quaternions(torch.randn((sum(mol.nelec), NCONF, 4), generator=gen,
+                                                 device="cuda"))
+    local = energy.ecp_acc.local(configs.positions)
+
+    def ecp_terms():
+        e = energy.ecp_acc(wf, params, state, configs.positions, rot)
+        return {"ecp": torch.stack([local, e - local], dim=1), "energy": e}
+
+    from pyqmc_tpu_torch.models.orbitals import plain_orbitals
+
+    with plain_orbitals():
+        e_p = ecp_terms()["energy"]
+    k3_err, _ = k3_against_plain("phase 38", "the ECP energy (local, nonlocal) of Slater x "
+                                 "JastrowSpin x the user's Jastrow",
+                                 lambda: {"ecp": ecp_terms()["ecp"]}, counters)
+    e_k = ecp_terms()["energy"]
+    rel = torch.abs(e_k - e_p) / torch.abs(e_p)
+    k3_err["ecp_per_walker_relative"] = float(torch.max(rel))
+    print(f"phase 38: per-walker ECP energy with K3 against plain, relative to each walker's "
+          f"own |E_ecp| (printed, not gated): max {float(torch.max(rel)):.3e}, median "
+          f"{float(torch.median(rel)):.3e} (|E_ecp| from {float(torch.min(torch.abs(e_p))):.4f} "
+          f"to {float(torch.max(torch.abs(e_p))):.4f} Ha)", flush=True)
+    t38 = time.perf_counter() - t_phase
+    print(f"phase 38: {t38:.1f} s (its budget 40 s)", flush=True)
+    out.update({"phase38_vmc": k3["vmc"], "phase38_linemin_per_iteration": k3["linemin"],
+                "phase38_seconds": t38, "k3_errors": k3_err, "walker_errors": walker_err})
+    return out
+
 
 def main():
     t_start = time.perf_counter()
@@ -4776,6 +5093,7 @@ def main():
     t36 = time.perf_counter() - t36
     print(f"phases 36-37: {ms['phase36_seconds']:.1f} + {ew['phase37_seconds']:.1f} = "
           f"{t36:.1f} s (their budget 60 s)", flush=True)
+    ps = public_surface_phase(t_start, card, counters, pconfigs)
     total = time.perf_counter() - t_start
     # phase 17 (the H2O optimization; 75.2 s on the host whose total set the budget) is
     # the host's yardstick
@@ -4911,6 +5229,11 @@ def main():
         # walker mesh (phase 36: rank 0's of the two ranks)
         entry.update({f"launches_{k}": v[entry["name"]] for k, v in {**rs, **cx, **ms}.items()
                       if not k.endswith("_seconds")})
+        # the public surface (phase 38): its 2 x 10-step VMC and one line-minimization iteration
+        entry.update({f"launches_{k}": ps[k][entry["name"]]
+                      for k in ("phase38_vmc", "phase38_linemin_per_iteration")})
+        if entry["name"] == "value_mo":
+            entry["phase38_k3_against_plain"] = ps["k3_errors"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

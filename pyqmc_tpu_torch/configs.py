@@ -2,7 +2,9 @@
 
 `Configs` holds positions (nconf, nelec, 3) and integer wrap counts;
 `Geometry` describes the boundary: open, or a periodic lattice whose
-minimal image and wrap it provides.
+minimal image and wrap it provides. Every operation on a `Configs`
+returns a new one and leaves its input as it was: the masked moves
+(`move`, `move_all`), `resample` (DMC branching), `split` and `join`.
 """
 
 from __future__ import annotations
@@ -39,11 +41,25 @@ class Geometry:
         c = self._const.get(like.device, like.dtype)
         return c["lat"], c["lat_inv"], c["shifts"]
 
-    def minimal_image(self, d):
+    def _args(self, like):
+        """(lattice, lattice_inv, mode, shifts) of the ops/distances functions."""
         if not self.periodic:
-            return d
-        lat, inv, shifts = self._tensors(d)
-        return _dist.minimal_image(d, lat, inv, self.mode, shifts)
+            return None, None, self.mode, None
+        lat, inv, shifts = self._tensors(like)
+        return lat, inv, self.mode, shifts
+
+    def minimal_image(self, d):
+        return _dist.minimal_image(d, *self._args(d))
+
+    def dist_matrix(self, positions):
+        """Minimal-image displacements r_j - r_i (..., n, n, 3) of positions
+        (..., n, 3); zero on the diagonal."""
+        return _dist.dist_matrix(positions, *self._args(positions))
+
+    def dist_i(self, positions, epos):
+        """Minimal-image displacements epos - r_j (..., n, 3) from every row
+        of positions (..., n, 3) to epos (..., 3)."""
+        return _dist.dist_i(positions, epos, *self._args(positions))
 
     def half_min_height(self):
         """Half the smallest interplanar spacing: the inradius of the
@@ -101,6 +117,69 @@ class Configs:
         if wrap is None:
             wrap = torch.zeros(positions.shape, dtype=torch.int32, device=positions.device)
         return Configs(positions=positions, wrap=wrap, geometry=geometry)
+
+    @property
+    def nconf(self):
+        return self.positions.shape[0]
+
+    @property
+    def nelec(self):
+        return self.positions.shape[1]
+
+    def electron(self, e):
+        """Positions of electron e: (nconf, 3)."""
+        return self.positions[:, e, :]
+
+    def make_irreducible(self, epos):
+        """Fold a proposed position into the cell: (epos folded, wrap delta
+        int32); the identity with a zero delta for an open boundary."""
+        return self.geometry.enforce(epos)
+
+    def move(self, e, epos, wrap_delta=None, mask=None):
+        """Electron e of the walkers in `mask` (nconf,) bool, all walkers
+        when None, moved to epos (nconf, 3), already folded into the cell;
+        their wrap counts grow by wrap_delta (nconf, 3) where one is given."""
+        if mask is None:
+            mask = torch.ones(epos.shape[0], dtype=torch.bool, device=epos.device)
+        m = mask[:, None]
+        new_pos = self.positions.clone()
+        new_pos[:, e, :] = torch.where(m, epos, self.positions[:, e, :])
+        new_wrap = self.wrap
+        if wrap_delta is not None:
+            new_wrap = self.wrap.clone()
+            new_wrap[:, e, :] = torch.where(m, self.wrap[:, e, :] + wrap_delta,
+                                            self.wrap[:, e, :])
+        return dataclasses.replace(self, positions=new_pos, wrap=new_wrap)
+
+    def move_all(self, new_positions, new_wrap=None, mask=None):
+        """Whole walkers replaced by new_positions (nconf, nelec, 3) (and
+        new_wrap where given), only those in `mask` (nconf,) when one is."""
+        if mask is None:
+            return dataclasses.replace(self, positions=new_positions,
+                                       wrap=self.wrap if new_wrap is None else new_wrap)
+        m = mask[:, None, None]
+        pos = torch.where(m, new_positions, self.positions)
+        wrap = self.wrap if new_wrap is None else torch.where(m, new_wrap, self.wrap)
+        return dataclasses.replace(self, positions=pos, wrap=wrap)
+
+    def resample(self, indices):
+        """The walkers at `indices` (DMC branching), in that order."""
+        return dataclasses.replace(self, positions=self.positions[indices],
+                                   wrap=self.wrap[indices])
+
+    def split(self, n):
+        """n parts of consecutive walkers, sized as numpy's array_split
+        sizes them, on the walkers' own device."""
+        pos = torch.tensor_split(self.positions, n)
+        wrap = torch.tensor_split(self.wrap, n)
+        return [Configs.create(p.clone(), self.geometry, wrap=w.clone())
+                for p, w in zip(pos, wrap)]
+
+    @staticmethod
+    def join(parts):
+        """The walkers of every part, in order, in one Configs."""
+        return Configs(positions=torch.cat([p.positions for p in parts]),
+                       wrap=torch.cat([p.wrap for p in parts]), geometry=parts[0].geometry)
 
     def to_hdf(self, grp):
         """Write positions, wrap and, for a lattice, the lattice under an

@@ -52,7 +52,7 @@ import torch
 from ..configs import Configs
 from ..models.orbitals import plain_orbitals
 from ..observables.ecp import rotations_from_quaternions
-from ..ops.move_sweep import build_fused_sweep, sweep_plain
+from ..ops.move_sweep import build_fused_sweep, limdrift, sweep_plain  # noqa: F401 (limdrift re-exported)
 from ..parallel.mesh import check_divides, gather_walkers, mean_over, shard_walkers
 from ..utils.profiling import measure_phase_split, trace
 from .hdftools import append_hdf, open_hdf

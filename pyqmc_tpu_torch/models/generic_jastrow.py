@@ -8,9 +8,16 @@ O(F) whatever the number of electrons:
 
     dU(e -> x) = (phi(x) - phi_e)^T A (S - phi_e).
 
-dU is linear in phi(x), so its gradient and laplacian are A (S - phi_e)
-contracted with the feature map's own gradient and laplacian, which both
-feature maps give analytically (the JAX package takes them by autodiff):
+A subclass defines what the JAX package's subclasses define, and nothing
+else: `features(params, xyz)`, the feature map (..., 3) -> (..., F) of each
+point on its own, and `bilinear(params, u, v)`, u^T A v over the last axis,
+broadcast over the rest. dU is linear in phi(x), so its gradient and
+laplacian are A (S - phi_e) contracted with the feature map's own gradient
+and laplacian; `feature_derivs` gives those by autograd through
+`features`, and `pgradient` is torch.func's per-walker gradient of
+`u_total` with respect to the parameters (the JAX package's
+jax.vmap(jax.grad(...))). The two feature maps the package ships override
+both with closed forms:
 
   * GeminalJastrow: phi = the AOs (eval_gto's mode 2), A = sym(gcoeff); on a
     cell the gamma-point supercell AOs, each AO summed over the lattice
@@ -18,10 +25,6 @@ feature maps give analytically (the JAX package takes them by autodiff):
     first (pyqmc_tpu/models/generic_jastrow.py:162-239);
   * GPSJastrow: phi_{s,t}(x) = exp(-f |x - X_st|^2), t = 0, 1, and
     phi^T A psi = sum_s alpha_s (phi_s0 psi_s1 + phi_s1 psi_s0).
-
-Subclasses define `features(params, xyz, derivs)` -> phi (..., F), or with
-derivs (phi, grad (..., 3, F), lap (..., F)); `bilinear(params, u, v)`
-(u^T A v over the last axis, broadcast over the rest); and `pgradient`.
 """
 
 from __future__ import annotations
@@ -49,18 +52,54 @@ class GenericJastrow:
     def __init__(self, nelec):
         self.nelec = nelec
 
-    def features(self, params, xyz, derivs=False):
+    def features(self, params, xyz):  # (..., 3) -> (..., F)
         raise NotImplementedError
 
-    def bilinear(self, params, u, v):
+    def bilinear(self, params, u, v):  # (..., F), (..., F) -> (...)
         raise NotImplementedError
+
+    def make_params(self, device=None, dtype=None):
+        raise NotImplementedError
+
+    def feature_derivs(self, params, xyz):
+        """(phi (..., F), grad (..., 3, F), lap (..., F)) of the feature map
+        at xyz (..., 3), by reverse-mode autograd. features acts on each
+        point alone, so the points go in F copies, copy f keeps only
+        feature f, and one backward pass of their sum gives every point's
+        gradient of every feature; three more give the laplacian."""
+        lead, x = xyz.shape[:-1], xyz.detach().reshape(-1, 3)
+        phi = self.features(params, x)
+        nf = phi.shape[-1]
+        with torch.enable_grad():
+            xs = x[None].repeat(nf, 1, 1).requires_grad_(True)  # (F, N, 3)
+            own = torch.diagonal(self.features(params, xs), dim1=0, dim2=-1)  # (N, F)
+            (g,) = torch.autograd.grad(own.sum(), xs, create_graph=True)
+            lap = sum(torch.autograd.grad(g[..., k].sum(), xs, retain_graph=k < 2)[0][..., k]
+                      for k in range(3))
+        return (phi.reshape(*lead, nf), g.detach().permute(1, 2, 0).reshape(*lead, 3, nf),
+                lap.detach().T.reshape(*lead, nf))
+
+    def _u(self, params, phi):
+        """(U, S) of the feature rows phi (nconf, nelec, F)."""
+        s = torch.sum(phi, dim=1)
+        diag = torch.sum(self.bilinear(params, phi, phi), dim=1)
+        return 0.5 * (self.bilinear(params, s, s) - diag), s
+
+    def u_total(self, params, positions):  # (nconf, nelec, 3) -> (nconf,)
+        return self._u(params, self.features(params, positions))[0]
+
+    def pgradient(self, params, positions):
+        """dU/dparams per walker: a dict of (nconf, *shape) tensors."""
+        def one(p, pos):
+            return self.u_total(p, pos[None])[0]
+
+        return torch.func.vmap(torch.func.grad(one), in_dims=(None, 0))(params, positions)
 
     # --- protocol ----------------------------------------------------------
     def recompute(self, params, positions):
         phi = self.features(params, positions)
-        s = torch.sum(phi, dim=1)
-        diag = torch.sum(self.bilinear(params, phi, phi), dim=1)
-        return GenericJastrowState(positions, 0.5 * (self.bilinear(params, s, s) - diag), phi, s)
+        u, s = self._u(params, phi)
+        return GenericJastrowState(positions, u, phi, s)
 
     def value(self, params, state):
         return torch.ones_like(state.u), state.u
@@ -88,7 +127,7 @@ class GenericJastrow:
     def _derivs(self, params, state, e, epos):
         """(du, grad du, lap du, phi) of electron e at epos (nconf, 3)."""
         phi_e, rest = self._rest(state, e)
-        eph, gph, lph = self.features(params, epos, derivs=True)
+        eph, gph, lph = self.feature_derivs(params, epos)
         return (self.bilinear(params, eph - phi_e, rest),
                 self.bilinear(params, gph, rest[:, None]), self.bilinear(params, lph, rest), eph)
 
@@ -151,7 +190,14 @@ class GeminalJastrow(GenericJastrow):
         dtype = dtype or real_dtype(device)
         return {"gcoeff": torch.zeros((self.nao, self.nao), dtype=dtype, device=device)}
 
-    def features(self, params, xyz, derivs=False):
+    def features(self, params, xyz):
+        return self._aos(xyz, derivs=False)
+
+    def feature_derivs(self, params, xyz):
+        """The AOs with their gradients and laplacians (eval_gto's mode 2)."""
+        return self._aos(xyz, derivs=True)
+
+    def _aos(self, xyz, derivs):
         lead = xyz.shape[:-1]
         X = xyz.reshape(-1, 3)
         if self._const is not None:
@@ -210,11 +256,13 @@ class GPSJastrow(GenericJastrow):
         d2 = torch.sum(d * d, dim=-1)
         return d, d2, torch.exp(-params["f"] * d2)
 
-    def features(self, params, xyz, derivs=False):
+    def features(self, params, xyz):
+        return self._kernel(params, xyz)[2].reshape(*xyz.shape[:-1], 2 * self.n_support)
+
+    def feature_derivs(self, params, xyz):
+        """phi with its closed-form gradient and laplacian."""
         lead, F = xyz.shape[:-1], 2 * self.n_support
         d, d2, k = self._kernel(params, xyz)
-        if not derivs:
-            return k.reshape(*lead, F)
         f = params["f"]
         grad = (-2.0 * f) * d * k[..., None]  # (..., s, 2, 3)
         lap = (4.0 * f * f * d2 - 6.0 * f) * k

@@ -29,6 +29,16 @@ def default_move_finish(w, params, state, e, epos, aux):
     return w.gradient_value(params, state, e, epos)
 
 
+def default_gradient_value_pair(w, params, state, e, epos_old, epos_new):
+    """(grad at epos_old, grad at epos_new, ratio, saved) of electron e:
+    one call where the factor has gradient_value_pair, else gradient and
+    gradient_value."""
+    if hasattr(w, "gradient_value_pair"):
+        return w.gradient_value_pair(params, state, e, epos_old, epos_new)
+    return (w.gradient(params, state, e, epos_old),
+            *w.gradient_value(params, state, e, epos_new))
+
+
 def default_testvalue_aux_all(w, params, state, aux, es=None):
     """Ratios (ne, nconf, naux) for moving electron es[i] to its own points
     aux[i] (ne, nconf, naux, 3), es a static sequence of electron indices
@@ -113,7 +123,7 @@ class MultiplyWF:
         go = gn = ratio = None
         saved = []
         for w, p, s in zip(self.wfs, self._split(params), state):
-            goi, gni, ri, svi = w.gradient_value_pair(p, s, e, epos_old, epos_new)
+            goi, gni, ri, svi = default_gradient_value_pair(w, p, s, e, epos_old, epos_new)
             go = goi if go is None else go + goi
             gn = gni if gn is None else gn + gni
             ratio = ri if ratio is None else ratio * ri

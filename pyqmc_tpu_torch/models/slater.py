@@ -437,12 +437,16 @@ class Slater:
         """Sherman-Morrison update of every unique determinant of the moving
         spin where `mask`, plus the orbital cache row."""
         s, row = self._spin_row(e)
-        if "gmo_up" in saved:
-            mo, gmo = (saved["mo_up"], saved["gmo_up"]) if s == 0 else (saved["mo_dn"], saved["gmo_dn"])
-        else:
-            mo_up, mo_dn, gmo_up, gmo_dn = self._eval(params, epos, 1)
-            mo, gmo = (mo_up, gmo_up) if s == 0 else (mo_dn, gmo_dn)
         sfx = "up" if s == 0 else "dn"
+        if f"gmo_{sfx}" in saved:
+            mo, gmo = saved[f"mo_{sfx}"], saved[f"gmo_{sfx}"]
+        else:
+            # a testvalue's saved values: the gradients are evaluated here,
+            # the update keeps the values the ratio was taken with, so that
+            # after a move near a node the 1/ratio of the new inverse cancels
+            # the ratio (K3's float32 values and mode 1's differ in rounding)
+            _, _, gmo_up, gmo_dn = self._eval(params, epos, 1)
+            mo, gmo = saved[f"mo_{sfx}"], gmo_up if s == 0 else gmo_dn
         inv = getattr(state, f"inv_{sfx}")
         phase = getattr(state, f"phase_{sfx}")
         logdet = getattr(state, f"logdet_{sfx}")

@@ -39,7 +39,7 @@ def test_updateinternals(wf, params, configs, generator, tol=1e-9):
     errors = []
     for e in range(nelec):
         newpos = pos[:, e, :] + 0.3 * _normal(generator, pos, (nconf, 3))
-        newpos, _ = configs.geometry.enforce(newpos)
+        newpos, _ = configs.make_irreducible(newpos)
         mask = _uniform(generator, pos, (nconf,)) > 0.5
         _, saved = wf.testvalue(params, state, e, newpos)
         state = wf.updateinternals(params, state, e, newpos, mask, saved)
@@ -60,7 +60,7 @@ def test_testvalue(wf, params, configs, generator, tol=1e-9):
     ph0, la0 = wf.value(params, state)
     for e in (0, nelec - 1):
         newpos = pos[:, e, :] + 0.4 * _normal(generator, pos, (nconf, 3))
-        newpos, _ = configs.geometry.enforce(newpos)
+        newpos, _ = configs.make_irreducible(newpos)
         ratio, _ = wf.testvalue(params, state, e, newpos)
         pos2 = pos.clone()
         pos2[:, e, :] = newpos
@@ -76,7 +76,7 @@ def test_testvalue_many(wf, params, configs, generator, tol=1e-9):
     nconf, nelec = pos.shape[:2]
     state = wf.recompute(params, pos)
     epos = pos[:, 0, :] + 0.5 * _normal(generator, pos, (nconf, 3))
-    epos, _ = configs.geometry.enforce(epos)
+    epos, _ = configs.make_irreducible(epos)
     many = wf.testvalue_many(params, state, epos)
     assert tuple(many.shape) == (nconf, nelec)
     for e in range(nelec):
@@ -121,7 +121,7 @@ def test_gradient_current(wf, params, configs, generator, tol=1e-6):
     # updateinternals (the hot path's cache maintenance)
     for e in range(min(nelec, 3)):
         newpos = pos[:, e, :] + 0.3 * _normal(generator, pos, (nconf, 3))
-        newpos, _ = configs.geometry.enforce(newpos)
+        newpos, _ = configs.make_irreducible(newpos)
         _, _, saved = wf.gradient_value(params, state, e, newpos)
         mask = torch.arange(nconf, device=pos.device) % 2 == 0
         state = wf.updateinternals(params, state, e, newpos, mask, saved)

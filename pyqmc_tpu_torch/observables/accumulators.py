@@ -70,6 +70,16 @@ class EnergyAccumulator:
         return {k: torch.mean(v, dim=0)
                 for k, v in self(wf, params, state, positions, rot, u_sel).items()}
 
+    def keys(self):
+        return {"ke", "ee", "ei", "ii", "ecp", "grad2", "total"}
+
+    def shapes(self):
+        return {k: () for k in self.keys()}
+
+    @property
+    def has_nonlocal_moves(self):
+        return self.ecp_acc is not None
+
 
 def gradient_generator(mol, wf, params, to_opt=None, naip=None, eps=1e-3, nodal_cutoff=1e-3,
                        **ewald_kws):

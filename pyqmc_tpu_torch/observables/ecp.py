@@ -103,6 +103,11 @@ def ecp_quadrature_grid(naip: int):
     raise ValueError(f"naip must be one of 6/12/18/26/32/50, got {naip}")
 
 
+def octahedral_grid(naip: int):
+    """The JAX package's older name of ecp_quadrature_grid."""
+    return ecp_quadrature_grid(naip)
+
+
 def rotations_from_quaternions(q):
     """Uniform random rotations (..., 3, 3) from normal quaternions q (..., 4)
     (the algebra of the JAX package's random_rotations)."""
@@ -380,6 +385,13 @@ class ECPAccumulator:
         if ratio.is_complex():  # observables/ecp.py:598-611
             ratio = ratio.real
         return aux, -tau * T, ratio
+
+    def tmove_data(self, wf, params, state, positions, e, rot_e, tau):
+        """(aux points (c, nq, 3), forward amplitudes max(0, w_q r_q)) of
+        electron e; see tmove_quadrature. The port takes the electron's
+        rotations rot_e (c, 3, 3) where the JAX package takes a key."""
+        aux, w, r = self.tmove_quadrature(wf, params, state, positions, e, rot_e, tau)
+        return aux, torch.clamp(w * r, min=0.0)
 
     def local(self, positions):
         """Local-channel energy summed over electrons and ECP atoms (nconf,)."""

@@ -37,14 +37,37 @@ def _image_shifts(lattice) -> np.ndarray:
 
 def minimal_image(d, lattice, lattice_inv, mode: str, shifts=None):
     """Map displacements d (..., 3) to their minimal image; lattice,
-    lattice_inv (and shifts (27, 3) in the general mode) are tensors on d's
-    device and dtype."""
+    lattice_inv (and shifts (27, 3) in the general mode, made from the
+    lattice when None) are tensors on d's device and dtype."""
     if mode == MODE_OPEN:
         return d
     frac = d @ lattice_inv
     base = (frac - torch.round(frac)) @ lattice
     if mode in (MODE_DIAGONAL, MODE_ORTHORHOMBIC):
         return base
+    if shifts is None:
+        shifts = torch.as_tensor(_image_shifts(lattice.detach().cpu().numpy()),
+                                 dtype=d.dtype, device=d.device)
     cand = base[..., None, :] + shifts  # (..., 27, 3)
     idx = torch.argmin(torch.sum(cand * cand, dim=-1), dim=-1)
     return torch.take_along_dim(cand, idx[..., None, None], dim=-2)[..., 0, :]
+
+
+def pair_displacements(pos_a, pos_b, lattice=None, lattice_inv=None, mode=MODE_OPEN,
+                       shifts=None):
+    """Minimal-image displacements pos_b - pos_a of broadcastable (..., 3)
+    tensors."""
+    return minimal_image(pos_b - pos_a, lattice, lattice_inv, mode, shifts)
+
+
+def dist_matrix(positions, lattice=None, lattice_inv=None, mode=MODE_OPEN, shifts=None):
+    """All-pairs minimal-image displacements r_j - r_i (..., n, n, 3) of
+    positions (..., n, 3), dense with a zero diagonal."""
+    d = positions[..., None, :, :] - positions[..., :, None, :]
+    return minimal_image(d, lattice, lattice_inv, mode, shifts)
+
+
+def dist_i(positions, epos, lattice=None, lattice_inv=None, mode=MODE_OPEN, shifts=None):
+    """Minimal-image displacements epos - r_j (..., n, 3) from every row of
+    positions (..., n, 3) to epos (..., 3)."""
+    return minimal_image(epos[..., None, :] - positions, lattice, lattice_inv, mode, shifts)

@@ -5,6 +5,7 @@ inputs. float64 is the parity dtype (CPU tests against the JAX package);
 float32 is the production dtype on the GPU.
 """
 
+import numpy as np
 import torch
 
 PARITY_DTYPE = torch.float64
@@ -50,3 +51,8 @@ def complex_dtype(dtype) -> torch.dtype:
     if dtype.is_complex:
         return dtype
     return torch.complex64 if dtype == torch.float32 else torch.complex128
+
+
+def is_complex(x) -> bool:
+    """True for a complex tensor, array or number."""
+    return x.is_complex() if isinstance(x, torch.Tensor) else bool(np.iscomplexobj(x))

@@ -39,7 +39,7 @@ from pyqmc_tpu_torch.utils.dtypes import NoCudaDeviceError
 
 from .torch_parity import (F64, bc_pair, compile_quick, diamond_cells, gamma_params,
                            gamma_wf_objects, h2o_pair, h2o_params, h2o_wf_objects, jax_ecp_draws,
-                           walkers)
+                           jrun, walkers)
 
 TSTEP, NSTEPS, NCONF = 0.3, 2, 48
 
@@ -176,12 +176,15 @@ def _jax_block(tmoves):
                                tmoves=tmoves, fused=False)
 
 
-def jax_dmc_streams(key, nelec, nconf, tmoves, dtype=jnp.float64):
-    """The draws of method/dmc.py's block (:220-250), as numpy."""
-    return {k: np.asarray(v) for k, v in _jax_dmc_draws(key, nelec, nconf, tmoves, dtype).items()}
+def jax_dmc_block(tag, jblock, args, nelec, nconf, tmoves):
+    """The JAX DMC block's outputs on args (its key args[4]) and its draws
+    (method/dmc.py:220-250) as numpy, in one function compiled once per tag
+    (jrun)."""
+    out, draws = jrun(tag, lambda *a: (jblock(*a), _jax_dmc_draws(a[4], nelec, nconf, tmoves,
+                                                                  jnp.float64)), *args)
+    return out, {k: np.asarray(v) for k, v in draws.items()}
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
 def _jax_dmc_draws(key, nelec, nconf, tmoves, dtype):
     kg, ku, kt, ke, _ = jax.random.split(key, 5)
 
@@ -216,12 +219,11 @@ def test_dmc_block_matches_jax(tmoves):
     e_trial, e_est, esigma = -17.05, -17.0, 0.5
     key = jax.random.PRNGKey(10)
     jblock, _ = _jax_block(tmoves)
-    p_j, _, w_j, avg_j = jblock(jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32),
-                                jnp.asarray(weights), key, jnp.float64(e_trial),
-                                jnp.float64(e_est), jnp.float64(esigma))
-
-    streams = dmc_streams_from_numpy(jax_dmc_streams(key, 8, NCONF, tmoves), device="cpu",
-                                     dtype=F64)
+    (p_j, _, w_j, avg_j), draws = jax_dmc_block(
+        ("h2o dmc block", tmoves), jblock,
+        (jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32), jnp.asarray(weights), key,
+         jnp.float64(e_trial), jnp.float64(e_est), jnp.float64(esigma)), 8, NCONF, tmoves)
+    streams = dmc_streams_from_numpy(draws, device="cpu", dtype=F64)
     block, _ = tdmc.make_dmc_block(twf, EnergyAccumulator(tmol), Geometry(), TSTEP, NSTEPS,
                                    tmoves=tmoves)
     tpos = t64(pos)

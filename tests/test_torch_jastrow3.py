@@ -68,9 +68,10 @@ from pyqmc_tpu_torch.wftools import generate_jastrow3, generate_wf
 
 from .test_torch_dmc import NSTEPS as DMC_NSTEPS
 from .test_torch_dmc import TSTEP as DMC_TSTEP
-from .test_torch_dmc import jax_dmc_streams
+from .test_torch_dmc import jax_dmc_block
 from .test_torch_multidet import JProbe, TProbe
-from .torch_parity import F64, assert_trees_close, compile_quick, h2o_pair, jrun, walkers
+from .torch_parity import (F64, assert_trees_close, h2o_pair, jax_vmc_block, jrun,
+                           walkers)
 
 NCONF = 8
 TOL = 1e-10
@@ -376,8 +377,6 @@ def vmc_blocks():
     rotations of the first): one JAX compile serves the VMC and the SR
     checks. Returns (jax positions, jax averages, port positions, port
     averages, port probe)."""
-    from .torch_parity import jax_ecp_draws
-
     (jmol, _), (tmol, _) = h2o_pair()
     jwf, jp, jto, twf, tp, tto = product_objects()
     nsteps, tstep = 3, 0.5
@@ -388,13 +387,9 @@ def vmc_blocks():
     jblock = j_make_vmc_block(jwf, {"pgrad": JSR(JEnergy(jmol), jt), "probe": JProbe()},
                               JGeometry(None), tstep=tstep, nsteps=nsteps, fused=False)
     args = (jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32), key)
-    p_j, _, avg_j = compile_quick(jblock, *args)(*args)
-    kg, ku, ka = jax.random.split(key, 3)
-    akeys = jax.random.split(ka, nsteps * 2).reshape((nsteps, 2) + ka.shape)
-    streams = {
-        "gauss": t64(jax.random.normal(kg, (nsteps, 8, NCONF, 3), jnp.float64) * np.sqrt(tstep)),
-        "unif": t64(jax.random.uniform(ku, (nsteps, 8, NCONF), jnp.float64)),
-        "rot": t64(jax.vmap(lambda k: jax_ecp_draws(k, 8, NCONF)[0])(akeys[:, 0]))}
+    # two accumulators: the rotations are the first's
+    (p_j, _, avg_j), streams = jax_vmc_block(("sj3", "vmc block"), jblock, args, 8, NCONF,
+                                             nsteps, tstep, naccumulators=2)
     probe = TProbe()
     block = make_vmc_block(twf, {"pgrad": StochasticReconfiguration(EnergyAccumulator(tmol), tt),
                                  "probe": probe}, Geometry(), tstep=tstep, nsteps=nsteps)
@@ -448,9 +443,9 @@ def test_dmc_block_matches_jax():
                                     accumulators={"probe": JProbe()}, fused=False)
     args = (jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32), jnp.asarray(weights), key,
             jnp.float64(e_trial), jnp.float64(e_est), jnp.float64(esigma))
-    p_j, _, w_j, avg_j = compile_quick(jblock, *args)(*args)
-    streams = dmc_streams_from_numpy(jax_dmc_streams(key, 8, NCONF, True), device="cpu",
-                                     dtype=F64)
+    (p_j, _, w_j, avg_j), draws = jax_dmc_block(("sj3", "dmc block"), jblock, args, 8, NCONF,
+                                                True)
+    streams = dmc_streams_from_numpy(draws, device="cpu", dtype=F64)
     block, _ = tdmc.make_dmc_block(twf, EnergyAccumulator(tmol), Geometry(), DMC_TSTEP,
                                    DMC_NSTEPS, accumulators={"probe": TProbe()})
     p_t, _, w_t, avg_t = block(tp, t64(pos), torch.zeros((NCONF, 8, 3), dtype=torch.int32),

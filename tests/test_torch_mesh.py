@@ -18,7 +18,6 @@ block fed the JAX shards' own draws (fold_in(key, shard index)) to 1e-10,
 and the global comb selects what JAX's meshed comb selects.
 """
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +44,8 @@ from pyqmc_tpu_torch.system.io import load_npz
 from pyqmc_tpu_torch.wftools import generate_wf
 
 from . import torch_mesh_ranks as ranks
-from .torch_parity import compile_quick, h2o_pair, h2o_params, h2o_wf_objects, jax_ecp_draws
+from .torch_parity import (compile_quick, h2o_pair, h2o_params, h2o_wf_objects, jax_ecp_draws,
+                           jrun)
 
 JAX_NSTEPS, JAX_TSTEP = 2, 0.5
 POS_ATOL = 1e-13
@@ -57,11 +57,12 @@ def jax_shard_streams(key, shard, nconf):
     """The draws of JAX's meshed VMC block on one shard (method/vmc.py:
     fold_in(key, axis_index), then split into gauss, unif and accumulator
     keys; one accumulator, whose ECP rotations jax_ecp_draws redraws), as
-    numpy."""
-    return {k: np.array(v) for k, v in _jax_shard_draws(key, shard, nconf).items()}
+    numpy, compiled once (jrun)."""
+    draws = jrun(("mesh shard draws", nconf), lambda k, r: _jax_shard_draws(k, r, nconf), key,
+                 jnp.int32(shard))
+    return {k: np.array(v) for k, v in draws.items()}
 
 
-@functools.partial(jax.jit, static_argnums=(2,))
 def _jax_shard_draws(key, shard, nconf):
     kg, ku, ka = jax.random.split(jax.random.fold_in(key, shard), 3)
     gauss = jax.random.normal(kg, (JAX_NSTEPS, 8, nconf, 3)) * jnp.sqrt(JAX_TSTEP)

@@ -35,7 +35,7 @@ from pyqmc_tpu_torch.ops.harmonics import cart_components
 from pyqmc_tpu_torch.ops.move_sweep import SJTables, build_fused_sweep, sweep_plain
 
 from .torch_parity import (F64, assert_trees_close, bc_pair, h2o_pair, h2o_params, h2o_wf_objects,
-                           walkers)
+                           jrun, walkers)
 
 TSTEP = 0.5
 
@@ -79,8 +79,9 @@ def test_sweep_matches_jax_xla_sweep(seed):
     gauss = rng.normal(size=(nelec, nconf, 3)) * np.sqrt(TSTEP)
     unif = rng.uniform(size=(nelec, nconf))
     recompute, jsweep = _jax_sweep()
-    js = recompute(jp, jnp.asarray(pos))
-    p_j, st_j, acc_j = jsweep(jp, jnp.asarray(pos), js, jnp.asarray(gauss), jnp.asarray(unif))
+    js = jrun("h2o recompute", recompute, jp, jnp.asarray(pos))
+    p_j, st_j, acc_j = jrun("h2o xla sweep", jsweep, jp, jnp.asarray(pos), js, jnp.asarray(gauss),
+                            jnp.asarray(unif))
 
     sweep = build_fused_sweep(twf, Geometry(), TSTEP)
     assert sweep is not None  # the main-path wavefunction is inside the gate

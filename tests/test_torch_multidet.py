@@ -56,8 +56,8 @@ from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep
 from pyqmc_tpu_torch.ops.tmove_sweep import build_fused_tmove_sweep
 from pyqmc_tpu_torch.system.io import load_expansion_npz
 
-from .test_torch_dmc import NSTEPS, TSTEP, jax_dmc_streams
-from .torch_parity import F64, compile_quick, h2o_pair, jax_ecp_draws, jrun, to_np, walkers
+from .test_torch_dmc import NSTEPS, TSTEP, jax_dmc_block
+from .torch_parity import F64, h2o_pair, jax_vmc_block, jrun, to_np, walkers
 
 NCONF = 8
 TOL = 1e-10
@@ -339,15 +339,9 @@ def test_vmc_block_matches_jax():
     jblock = j_make_vmc_block(jwf, {"energy": JEnergy(jmol), "probe": JProbe()}, JGeometry(None),
                               tstep=tstep, nsteps=nsteps, fused=False)
     args = (jp, jnp.array(pos), jnp.zeros((nconf, 8, 3), jnp.int32), key)
-    p_j, _, avg_j = compile_quick(jblock, *args)(*args)
-
-    # the JAX block's draws (method/vmc.py:136-145), two accumulators
-    kg, ku, ka = jax.random.split(key, 3)
-    akeys = jax.random.split(ka, nsteps * 2).reshape((nsteps, 2) + ka.shape)
-    streams = {
-        "gauss": t64(jax.random.normal(kg, (nsteps, 8, nconf, 3), jnp.float64) * np.sqrt(tstep)),
-        "unif": t64(jax.random.uniform(ku, (nsteps, 8, nconf), jnp.float64)),
-        "rot": t64(jax.vmap(lambda k: jax_ecp_draws(k, 8, nconf)[0])(akeys[:, 0]))}
+    # the block and its draws (two accumulators, the rotations the first's)
+    (p_j, _, avg_j), streams = jax_vmc_block(("multiply", "vmc block"), jblock, args, 8, nconf,
+                                             nsteps, tstep, naccumulators=2)
     probe = TProbe()
     block = make_vmc_block(twf, {"energy": EnergyAccumulator(tmol), "probe": probe}, Geometry(),
                            tstep=tstep, nsteps=nsteps)
@@ -383,10 +377,9 @@ def test_dmc_block_matches_jax():
                                     accumulators={"probe": JProbe()}, fused=False)
     args = (jp, jnp.array(pos), jnp.zeros((nconf, 8, 3), jnp.int32), jnp.asarray(weights), key,
             jnp.float64(e_trial), jnp.float64(e_est), jnp.float64(esigma))
-    p_j, _, w_j, avg_j = compile_quick(jblock, *args)(*args)
-
-    streams = dmc_streams_from_numpy(jax_dmc_streams(key, 8, nconf, True), device="cpu",
-                                     dtype=F64)
+    (p_j, _, w_j, avg_j), draws = jax_dmc_block(("multiply", "dmc block"), jblock, args, 8,
+                                                nconf, True)
+    streams = dmc_streams_from_numpy(draws, device="cpu", dtype=F64)
     block, _ = tdmc.make_dmc_block(twf, EnergyAccumulator(tmol), Geometry(), TSTEP, NSTEPS,
                                    accumulators={"probe": TProbe()})
     p_t, _, w_t, avg_t = block(tp, t64(pos), torch.zeros((nconf, 8, 3), dtype=torch.int32),

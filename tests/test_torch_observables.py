@@ -324,3 +324,46 @@ def test_sq_limits():
     np.testing.assert_allclose(out["Sq"][1].item(), 6.0, atol=1e-6)
     np.testing.assert_allclose(out["spinSq"][1].item(), 0.0, atol=1e-6)
     assert len(SqAccumulator(Cell()).qlist) == 9**3 - 1
+
+
+def test_same_spin_tbdm_update_keeps_the_ratio_values(monkeypatch):
+    """The same-spin TBDM moves electron e1 to r1 (testvalue) and takes the
+    other electrons' ratios on the state updated there (updateinternals on
+    testvalue's saved values). The update must use the values the ratio was
+    taken with: K3 evaluates those in float32 and the update's gradients
+    come from mode 1, whose values round otherwise, and near a node the new
+    inverse's 1/ratio then no longer cancels the ratio. Here the value-only
+    orbitals are perturbed by 1e-10 relative, as another route rounds them,
+    and walker 0's r1 sits 1e-6 bohr from its second up electron (ratio
+    about 1e-6): the TBDM must move by about 1e-10 of each walker's largest
+    entry, not by 1e-10 / ratio."""
+    from pyqmc_tpu_torch.models.orbitals import MolecularOrbitals
+
+    (_, _), (tmol, tmf) = h2o_pair()
+    _, twf = h2o_wf_objects()
+    rng = np.random.default_rng(91)
+    _, tp = h2o_params(rng)
+    nconf = 8
+    x = t64(walkers(rng, nconf))
+    acc = tbdm.TBDMAccumulator(tmol, tmf.mo_coeff[0][:, :8], spin=(0, 0))
+    d = {k: v[0] for k, v in acc.draw(torch.Generator().manual_seed(92), 1, nconf, "cpu",
+                                      F64).items()}
+    d["r1"][0] = x[0, 1] + 1e-6
+    st = twf.recompute(tp, x)
+    ref = acc(twf, tp, st, x, draws=d)["value"].reshape(nconf, -1)
+    ratio = twf.testvalue(tp, st, 0, d["r1"])[0]
+    assert float(torch.abs(ratio[0])) < 1e-4  # walker 0's move of electron 0 is near a node
+    plain_eval = MolecularOrbitals.eval
+
+    def rounded_otherwise(self, params, X, mode):
+        out = plain_eval(self, params, X, mode)
+        if mode != 0:
+            return out
+        g = torch.Generator().manual_seed(93)
+        return tuple(m * (1.0 + 1e-10 * torch.randn(m.shape, generator=g, dtype=m.dtype))
+                     for m in out)
+
+    monkeypatch.setattr(MolecularOrbitals, "eval", rounded_otherwise)
+    got = acc(twf, tp, st, x, draws=d)["value"].reshape(nconf, -1)
+    err = torch.amax(torch.abs(got - ref), dim=1) / torch.amax(torch.abs(ref), dim=1)
+    assert float(torch.max(err)) < 1e-8, err

@@ -52,8 +52,8 @@ from pyqmc_tpu_torch.observables.transform import LinearTransform
 from pyqmc_tpu_torch.wftools import generate_slater, generate_wf
 
 from .test_torch_vmc import NCONF, NSTEPS, TSTEP
-from .torch_parity import (F64, compile_quick, diamond_cells, h2o_pair, jax_ecp_draws,
-                           jax_rotations, to_np, walkers)
+from .torch_parity import (F64, compile_quick, diamond_cells, h2o_pair, jax_rotations,
+                           jax_vmc_block, to_np, walkers)
 
 # the keys of the JAX package's iteration records (method/linemin.py:251-259)
 RECORD_KEYS = {"iteration", "energy", "energy_err", "gnorm", "tau", "stalled", "line_energies"}
@@ -173,19 +173,6 @@ def to_np_tensors(tree):
 
 # --- (2) one VMC block with the SR accumulator -------------------------------
 
-@functools.partial(jax.jit, static_argnums=(1, 2))
-def jax_block_draws(key, nelec, nconf):
-    """The draws of method/vmc.py's block for one accumulator (as
-    tests/test_torch_vmc.py:jax_block_streams makes them), in one jitted
-    call: gauss, unif and each step's ECP rotations."""
-    kg, ku, ka = jax.random.split(key, 3)
-    gauss = jax.random.normal(kg, (NSTEPS, nelec, nconf, 3), jnp.float64) * jnp.sqrt(TSTEP)
-    unif = jax.random.uniform(ku, (NSTEPS, nelec, nconf), jnp.float64)
-    akeys = jax.random.split(ka, NSTEPS).reshape((NSTEPS, 1) + ka.shape)
-    rot = jax.vmap(lambda k: jax_ecp_draws(k, nelec, nconf)[0])(akeys[:, 0])
-    return {"gauss": gauss, "unif": unif, "rot": rot}
-
-
 @functools.lru_cache(maxsize=None)
 def sr_blocks():
     """One 2-step VMC block with {"pgrad": SR} on both sides, on the JAX
@@ -199,8 +186,8 @@ def sr_blocks():
     jblock = j_make_vmc_block(jwf, {"pgrad": jsr}, JGeometry(None), tstep=TSTEP, nsteps=NSTEPS,
                               fused=False)
     args = (jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32), key)
-    p_j, _, avg_j = compile_quick(jblock, *args)(*args)
-    streams = {k: t64(v) for k, v in jax_block_draws(key, 8, NCONF).items()}
+    (p_j, _, avg_j), streams = jax_vmc_block("h2o sr block", jblock, args, 8, NCONF, NSTEPS,
+                                             TSTEP)
     tsr = StochasticReconfiguration(EnergyAccumulator(tmol), LinearTransform(tp, tto))
     block = make_vmc_block(twf, {"pgrad": tsr}, Geometry(), tstep=TSTEP, nsteps=NSTEPS)
     p_t, _, avg_t = block(tp, t64(pos), torch.zeros((NCONF, 8, 3), dtype=torch.int32), None,

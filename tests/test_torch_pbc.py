@@ -32,7 +32,7 @@ from pyqmc_tpu_torch.ops.pbc import enforce_pbc
 from pyqmc_tpu_torch.system.supercell import get_supercell, primitive_translations
 
 from .torch_parity import (F64, assert_trees_close, cell_walkers, diamond_cells, gamma_params,
-                           gamma_jax_recompute, gamma_wf_objects, jax_ecp_streams,
+                           gamma_jax_recompute, gamma_wf_objects, jax_ecp_streams, jrun,
                            kpoint_orbitals)
 
 NCONF = 5
@@ -175,7 +175,8 @@ def test_ecp_downselected_flat_path():
     jecp = JECP(jcell, nselect=8, echunk=8)
     assert ECPAccumulator(tcell).nselect is None  # 12 points stay dense under "auto"
     key = jax.random.PRNGKey(7)
-    e_j = jax.jit(lambda p, s, xx: jecp(jwf, p, s, xx, key))(jp, js, jnp.asarray(x))
+    e_j = jrun("gamma downselected ecp", lambda p, s, xx: jecp(jwf, p, s, xx, key), jp, js,
+               jnp.asarray(x))
     rot, u = jax_ecp_streams(key, 8, NCONF)
     for echunk in (3, 8):
         tecp = ECPAccumulator(tcell, nselect=8, echunk=echunk)
@@ -190,7 +191,8 @@ def test_kinetic_energy_batched():
     against the JAX package's vmapped evaluation."""
     jwf, twf = gamma_wf_objects()
     jp, tp, x, js, ts = _gamma_state()
-    ke_j, g2_j = jax.jit(lambda p, s, xx: j_kinetic(jwf, p, s, xx))(jp, js, jnp.asarray(x))
+    ke_j, g2_j = jrun("gamma kinetic", lambda p, s, xx: j_kinetic(jwf, p, s, xx), jp, js,
+                      jnp.asarray(x))
     for echunk in (3, "auto"):
         ke_t, g2_t = kinetic_energy(twf, tp, ts, t64(x), echunk=echunk)
         np.testing.assert_allclose(ke_t.numpy(), np.asarray(ke_j), rtol=1e-9)

@@ -39,7 +39,7 @@ from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 from pyqmc_tpu_torch.ops.move_sweep import build_fused_sweep, sweep_plain
 
 from .torch_parity import (F64, assert_trees_close, cell_walkers, diamond_cells, gamma_params,
-                           gamma_jax_recompute, gamma_wf_objects, jax_ecp_streams)
+                           gamma_jax_recompute, gamma_wf_objects, jax_vmc_block, jrun)
 
 TSTEP, NSTEPS, NCONF, NELEC = 0.5, 2, 5, 8
 
@@ -85,8 +85,8 @@ def test_plain_sweep_matches_jax():
     unif = rng.uniform(size=(NELEC, NCONF))
     wrap0 = rng.integers(-2, 3, size=(NCONF, NELEC, 3)).astype(np.int32)
     js = gamma_jax_recompute()(jp, jnp.asarray(pos))
-    pj, wj, sj, aj = _jax_sweep()(jp, jnp.asarray(pos), jnp.asarray(wrap0), js, jnp.asarray(gauss),
-                                  jnp.asarray(unif))
+    pj, wj, sj, aj = jrun("gamma xla sweep", _jax_sweep(), jp, jnp.asarray(pos),
+                          jnp.asarray(wrap0), js, jnp.asarray(gauss), jnp.asarray(unif))
     tpos = torch.as_tensor(pos, dtype=F64)
     # the JAX state and wrap counts carried over by the converters
     jnp_s = jax.device_get(js)
@@ -110,17 +110,6 @@ def test_plain_sweep_matches_jax():
     assert torch.equal(pf, pt) and torch.equal(wf_, wt) and float(af) == float(at)
 
 
-def jax_block_streams(key, nconf):
-    """The draws of method/vmc.py's block for one accumulator, as numpy:
-    gauss, unif, and per step the ECP rotations and selection uniforms."""
-    kg, ku, ka = jax.random.split(key, 3)
-    gauss = jax.random.normal(kg, (NSTEPS, NELEC, nconf, 3), jnp.float64) * jnp.sqrt(TSTEP)
-    unif = jax.random.uniform(ku, (NSTEPS, NELEC, nconf), jnp.float64)
-    ecp = [jax_ecp_streams(k, NELEC, nconf) for k in jax.random.split(ka, NSTEPS)]
-    return {"gauss": np.array(gauss), "unif": np.array(unif),
-            "rot": np.stack([r for r, _ in ecp]), "u_sel": np.stack([u for _, u in ecp])}
-
-
 def test_vmc_block_matches_jax():
     jwf, twf = gamma_wf_objects()
     jcell, _, tcell = diamond_cells()
@@ -131,8 +120,10 @@ def test_vmc_block_matches_jax():
     jacc = {"energy": JEnergy(jcell, ecp_acc=JECP(jcell, nselect=8))}
     jblock = j_make_vmc_block(jwf, jacc, JGeometry(jcell.lattice), tstep=TSTEP, nsteps=NSTEPS,
                               fused=False)
-    p_j, w_j, avg_j = jblock(jp, jnp.asarray(pos), jnp.zeros((NCONF, NELEC, 3), jnp.int32), key)
-    streams = {k: torch.tensor(v, dtype=F64) for k, v in jax_block_streams(key, NCONF).items()}
+    (p_j, w_j, avg_j), streams = jax_vmc_block(
+        "gamma vmc block", jblock,
+        (jp, jnp.asarray(pos), jnp.zeros((NCONF, NELEC, 3), jnp.int32), key), NELEC, NCONF,
+        NSTEPS, TSTEP, u_sel=True)
     tacc = {"energy": EnergyAccumulator(tcell, ecp_acc=ECPAccumulator(tcell, nselect=8))}
     block = make_vmc_block(twf, tacc, Geometry(tcell.lattice), tstep=TSTEP, nsteps=NSTEPS)
     p_t, w_t, avg_t = block(tp, torch.as_tensor(pos, dtype=F64),

@@ -25,19 +25,9 @@ from pyqmc_tpu_torch.models import orbitals as orbitals_mod
 from pyqmc_tpu_torch.observables.accumulators import EnergyAccumulator
 from pyqmc_tpu_torch.observables.ecp import ECPAccumulator
 
-from .torch_parity import F64, h2o_pair, h2o_params, h2o_wf_objects, jax_rotations, walkers
+from .torch_parity import F64, h2o_pair, h2o_params, h2o_wf_objects, jax_vmc_block, walkers
 
 TSTEP, NSTEPS, NCONF = 0.5, 2, 4
-
-
-def jax_block_streams(key, nelec, nconf, dtype=jnp.float64):
-    """The draws of method/vmc.py's block for one accumulator, as numpy."""
-    kg, ku, ka = jax.random.split(key, 3)
-    gauss = jax.random.normal(kg, (NSTEPS, nelec, nconf, 3), dtype) * jnp.sqrt(TSTEP)
-    unif = jax.random.uniform(ku, (NSTEPS, nelec, nconf), dtype)
-    akeys = jax.random.split(ka, NSTEPS * 1).reshape((NSTEPS, 1) + ka.shape)
-    rot = np.stack([jax_rotations(akeys[s, 0], nelec, nconf) for s in range(NSTEPS)])
-    return {"gauss": np.asarray(gauss), "unif": np.asarray(unif), "rot": rot}
 
 
 def test_vmc_block_matches_jax():
@@ -49,10 +39,9 @@ def test_vmc_block_matches_jax():
     key = jax.random.PRNGKey(5)
     jblock = j_make_vmc_block(jwf, {"energy": JEnergy(jmol)}, JGeometry(None), tstep=TSTEP,
                               nsteps=NSTEPS, fused=False)
-    p_j, _, avg_j = jblock(jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32), key)
-
-    streams = {k: torch.tensor(v, dtype=F64)
-               for k, v in jax_block_streams(key, 8, NCONF).items()}
+    (p_j, _, avg_j), streams = jax_vmc_block(
+        "h2o vmc block", jblock, (jp, jnp.array(pos), jnp.zeros((NCONF, 8, 3), jnp.int32), key),
+        8, NCONF, NSTEPS, TSTEP)
     block = make_vmc_block(twf, {"energy": EnergyAccumulator(tmol)}, Geometry(),
                            tstep=TSTEP, nsteps=NSTEPS)
     p_t, _, avg_t = block(tp, torch.as_tensor(pos, dtype=F64),

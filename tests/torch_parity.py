@@ -98,8 +98,7 @@ def walkers(rng, nconf, nelec=8, scale=1.5):
 def jax_rotations(key, nelec, nconf):
     """(nelec, nconf, 3, 3) numpy: the rotations the JAX ECPAccumulator
     draws from `key` (one per electron from fold_in(key, 1000 + e))."""
-    return np.stack([np.asarray(random_rotations(jax.random.fold_in(key, 1000 + e), (nconf,)))
-                     for e in range(nelec)])
+    return jax_ecp_streams(key, nelec, nconf)[0]
 
 
 def port_molecule(jmol):
@@ -193,11 +192,11 @@ def gamma_wf_objects():
     return jwf, twf
 
 
-@functools.lru_cache(maxsize=None)
 def gamma_jax_recompute():
-    """jit of the JAX gamma wavefunction's recompute, shared by the tests
-    (one compile per walker count)."""
-    return jax.jit(gamma_wf_objects()[0].recompute)
+    """The JAX gamma wavefunction's recompute, shared by the tests (one
+    compile per walker count, jrun)."""
+    jwf = gamma_wf_objects()[0]
+    return lambda p, x: jrun(("gamma recompute", x.shape), jwf.recompute, p, x)
 
 
 def gamma_params(rng):
@@ -228,8 +227,8 @@ def jax_ecp_streams(key, nelec, nconf):
     """The ECP draws of the JAX ECPAccumulator from `key`, as numpy:
     rotations (nelec, nconf, 3, 3) from fold_in(key, 1000 + e) and the
     downselection uniforms (nelec, nconf) from fold_in(fold_in(key, 1000 +
-    e), 777)."""
-    rot, u = jax_ecp_draws(key, nelec, nconf)
+    e), 777); compiled once per shape (jrun)."""
+    rot, u = jrun(("ecp draws", nelec, nconf), lambda k: jax_ecp_draws(k, nelec, nconf), key)
     return np.array(rot), np.array(u)
 
 
@@ -243,6 +242,32 @@ def jax_ecp_draws(key, nelec, nconf):
 
 
 _COMPILED = {}
+
+
+def jax_vmc_draws(key, nelec, nconf, nsteps, tstep, naccumulators=1, u_sel=False):
+    """The draws of the JAX VMC block (method/vmc.py:136-145) from its key:
+    gauss, unif and, per step, the first accumulator's ECP rotations (and
+    its selection uniforms with u_sel)."""
+    kg, ku, ka = jax.random.split(key, 3)
+    akeys = jax.random.split(ka, nsteps * naccumulators).reshape(
+        (nsteps, naccumulators) + ka.shape)
+    rot, u = jax.vmap(lambda k: jax_ecp_draws(k, nelec, nconf))(akeys[:, 0])
+    out = {"gauss": jax.random.normal(kg, (nsteps, nelec, nconf, 3), jnp.float64)
+           * jnp.sqrt(tstep),
+           "unif": jax.random.uniform(ku, (nsteps, nelec, nconf), jnp.float64), "rot": rot}
+    if u_sel:
+        out["u_sel"] = u
+    return out
+
+
+def jax_vmc_block(tag, jblock, args, nelec, nconf, nsteps, tstep, naccumulators=1,
+                  u_sel=False):
+    """The JAX VMC block's outputs on args (its key args[3]) and its draws
+    (jax_vmc_draws) as float64 tensors, in one function compiled once per tag
+    (jrun)."""
+    out, draws = jrun(tag, lambda *a: (jblock(*a), jax_vmc_draws(
+        a[3], nelec, nconf, nsteps, tstep, naccumulators, u_sel)), *args)
+    return out, {k: torch.tensor(np.asarray(v), dtype=F64) for k, v in draws.items()}
 
 
 def jrun(tag, fn, *args):
